@@ -33,7 +33,9 @@ from .arguments import get_inference_args
 def resolve_device(spec: str) -> torch.device:
     """``--device``: a CUDA index (the reference's default "0") or "cpu".
     A CUDA device on a host without CUDA raises: the port never falls back
-    to the CPU unasked."""
+    to the CPU unasked. On CUDA, TF32 is turned off for cuDNN and matmuls,
+    so what the configuration runs in fp32 (``--no_amp``, the cuDNN convs'
+    grads, the loss) is fp32."""
     if spec.strip().lower() == "cpu":
         return torch.device("cpu")
     try:
@@ -47,6 +49,8 @@ def resolve_device(spec: str) -> torch.device:
     if index >= torch.cuda.device_count():
         raise RuntimeError(f"--device {spec}: only {torch.cuda.device_count()} "
                            "CUDA device(s)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", index)
 
 

@@ -12,6 +12,8 @@ import os
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+
 from .. import get_logger
 
 logger = get_logger("data")
@@ -104,3 +106,24 @@ def make_file_records(database: "OrderedDict[str, Dict[str, str]]",
         records.append(rec)
     return records
 
+
+def kfold_split(ids: Sequence[str], fold: int, n_splits: int = 5,
+                seed: int = 123) -> Tuple[List[str], List[str]]:
+    """The split of sklearn ``KFold(n_splits, shuffle=True,
+    random_state=seed)`` (reference definer.py:609-614), without sklearn:
+    the indices shuffled by ``RandomState(seed)``, cut into n_splits folds
+    (the first n % n_splits one longer); fold ``fold`` is the validation
+    set, each side in the sorted order of the ids."""
+    ids = list(ids)
+    n = len(ids)
+    if not 2 <= n_splits <= n:
+        raise ValueError(f"Cannot have number of splits n_splits={n_splits} greater "
+                         f"than the number of samples: n_samples={n}.")
+    order = np.arange(n)
+    np.random.RandomState(seed).shuffle(order)
+    sizes = np.full(n_splits, n // n_splits)
+    sizes[:n % n_splits] += 1
+    start = int(sizes[:fold].sum())
+    val = np.zeros(n, bool)
+    val[order[start:start + sizes[fold]]] = True
+    return [ids[i] for i in np.flatnonzero(~val)], [ids[i] for i in np.flatnonzero(val)]

@@ -1,9 +1,10 @@
-"""Eval dataset and prefetching loader feeding the card.
+"""Datasets and prefetching loaders feeding the card.
 
-The eval half of ``brats21_tpu/data/pipeline.py``: NIfTI decode and numpy
-preprocessing run in a background thread while the card computes the
-previous case; batches are numpy arrays that the engine copies to the
-device. The native (ctypes) loader, the train loader and multi-host
+``brats21_tpu/data/pipeline.py`` without JAX: NIfTI decode, numpy
+preprocessing and the train augmentations run in background threads while
+the card computes the previous step or case; batches are numpy arrays that
+the engine copies to the device. The split follows definer.py:583-628
+(KFold(5, shuffle, seed)). The native (ctypes) loader and multi-host
 striping come with later slices.
 """
 
@@ -11,15 +12,18 @@ from __future__ import annotations
 
 import queue
 import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .. import get_logger
-from .discovery import (MODALITIES, create_database,
-                        create_database_test_docker, make_file_records)
+from .discovery import (MODALITIES, MODALITIES_WITH_SEG, create_database,
+                        create_database_test_docker, kfold_split,
+                        make_file_records)
 from .nifti import read_nifti
-from .transforms import preprocess_case
+from .transforms import augment_train_sample, preprocess_case
 
 logger = get_logger("data")
 
@@ -41,16 +45,20 @@ def load_case(record: Dict[str, Any]) -> Tuple[np.ndarray, Optional[np.ndarray],
 
 class BraTSDataset:
     """Lazy per-case dataset: record → preprocessed sample dict (numpy
-    path of the JAX package's dataset)."""
+    path of the JAX package's dataset). Eval datasets normalize at load;
+    train datasets load raw (``normalize=False``) and the loader normalizes
+    after the augmentations (definer.py:458-468)."""
 
     def __init__(self, records: List[Dict[str, Any]], *,
                  with_seg: bool, remove_outliers: bool = False,
-                 crop: bool = True, already_preprocess: bool = False):
+                 crop: bool = True, already_preprocess: bool = False,
+                 normalize: bool = True):
         self.records = records
         self.with_seg = with_seg
         self.remove_outliers = remove_outliers
         self.crop = crop and not already_preprocess
         self.already_preprocess = already_preprocess
+        self.normalize = normalize and not already_preprocess
 
     def __len__(self) -> int:
         return len(self.records)
@@ -65,7 +73,7 @@ class BraTSDataset:
             sample = preprocess_case(img, seg, crop=False, normalize=False)
         else:
             sample = preprocess_case(img, seg, remove_outliers=self.remove_outliers,
-                                     crop=self.crop)
+                                     crop=self.crop, normalize=self.normalize)
         sample["affine"] = affine
         sample["patient_id"] = record["patient_id"]
         return sample
@@ -87,12 +95,13 @@ _SENTINEL = object()
 
 
 class _PrefetchIterator:
-    """One producer thread + bounded queue: keeps ``prefetch`` items in
-    flight. A consumer that stops early releases the producer through
-    :meth:`close` (also called when the iterator is collected)."""
+    """A producer thread over a pool of ``num_workers`` threads + bounded
+    queue: keeps ``prefetch`` items queued while ``num_workers`` more are
+    made, in order. A consumer that stops early releases the producer
+    through :meth:`close` (also called when the iterator is collected)."""
 
     def __init__(self, make_item: Callable[[int], Any], n: int,
-                 prefetch: int = 2):
+                 prefetch: int = 2, num_workers: int = 1):
         self._q: "queue.Queue[Any]" = queue.Queue(maxsize=max(prefetch, 1))
         self._error: Optional[BaseException] = None
         self._closed = threading.Event()
@@ -106,11 +115,21 @@ class _PrefetchIterator:
                     continue
             return False
 
+        workers = max(num_workers, 1)
+
         def producer():
             try:
-                for i in range(n):
-                    if not _put(make_item(i)):
-                        return
+                # a bounded window of submissions: pool.map would schedule
+                # the whole epoch at once and hold every batch in memory
+                with ThreadPoolExecutor(workers) as pool:
+                    futures: "deque" = deque()
+                    idx = 0
+                    while idx < n or futures:
+                        while idx < n and len(futures) < workers:
+                            futures.append(pool.submit(make_item, idx))
+                            idx += 1
+                        if not _put(futures.popleft().result()):
+                            return
             except BaseException as e:  # noqa: BLE001 — re-raised in __next__
                 self._error = e
             finally:
@@ -156,6 +175,84 @@ class EvalLoader:
 
         return iter(_PrefetchIterator(make_item, len(self.dataset),
                                       self.prefetch))
+
+
+class TrainLoader:
+    """Shuffling, augmenting, batching loader with deterministic per-epoch
+    seeds (the JAX package's TrainLoader, replacing the reference's
+    set_determinism, definer.py:507-508): the epoch's order and each case's
+    augmentation seed come from ``default_rng((seed, epoch))``. The last
+    batch may be short, as the reference DataLoader's (definer.py:521)."""
+
+    def __init__(self, dataset: BraTSDataset, batch_size: int,
+                 patch_size: Sequence[int], seed: int = 123, num_workers: int = 4):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.patch_size = list(patch_size)
+        self.seed = seed
+        self.num_workers = num_workers
+        self.epoch = 0
+
+    def __len__(self) -> int:
+        return -(-len(self.dataset) // self.batch_size)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        rng = np.random.default_rng((self.seed, self.epoch))
+        order = rng.permutation(len(self.dataset))
+        batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
+                   for i in range(len(self))]
+        aug_seeds = rng.integers(0, 2 ** 31, size=len(self.dataset))
+        ds = self.dataset
+        normalize = not ds.normalize and not ds.already_preprocess
+
+        def make_batch(bi: int) -> Dict[str, Any]:
+            return _collate([augment_train_sample(
+                ds[int(idx)], np.random.default_rng(int(aug_seeds[idx])),
+                self.patch_size, normalize=normalize,
+                remove_outliers=ds.remove_outliers) for idx in batches[bi]])
+
+        return iter(_PrefetchIterator(make_batch, len(batches),
+                                      num_workers=self.num_workers))
+
+
+def create_train_val_records(cfg: Any) -> Tuple[List[Dict], List[Dict]]:
+    """definer.py:583-628: KFold(5, shuffle, seed) over the sorted patient
+    list, or an explicit ``val_data_path``."""
+    if cfg.val_data_path is not None and cfg.fold is not None:
+        raise ValueError("Specified a val_data_path when a fold split is "
+                         "specified is not possible")
+    train_files: List[Dict] = []
+    val_files: List[Dict] = []
+    if cfg.val_data_path:
+        db = create_database(cfg.val_data_path, required_modality=MODALITIES_WITH_SEG)
+        val_files = make_file_records(db, with_seg=True)
+    if cfg.train_data_path:
+        db = create_database(cfg.train_data_path, required_modality=MODALITIES_WITH_SEG)
+        ids = list(db)
+        train_id, val_id = (ids, []) if (cfg.fold is None or cfg.val_data_path) \
+            else kfold_split(ids, cfg.fold, 5, cfg.seed)
+        recs = make_file_records(db, with_seg=True)
+        train_files = [r for r in recs if r["patient_id"] in set(train_id)]
+        if not cfg.val_data_path:
+            val_files = [r for r in recs if r["patient_id"] in set(val_id)]
+    if not train_files and not val_files:
+        raise ValueError("train files and val files are empty")
+    return train_files, val_files
+
+
+def make_train_loader(cfg: Any, train_files: Sequence[Dict]) -> Optional[TrainLoader]:
+    """The train half of the JAX package's ``make_train_val_loaders``
+    (definer.py:438-527): raw loads, augmentations, normalization last."""
+    if not train_files:
+        return None
+    ds = BraTSDataset(list(train_files), with_seg=True,
+                      remove_outliers=cfg.remove_outliers,
+                      already_preprocess=cfg.already_preprocess, normalize=False)
+    return TrainLoader(ds, cfg.batch_size, cfg.patch_size, seed=cfg.seed,
+                       num_workers=cfg.num_workers)
 
 
 def discover_test_records(cfg: Any) -> list:

@@ -1,16 +1,19 @@
-"""Host-side eval preprocessing, numpy, channels-last (X, Y, Z, C).
+"""Host-side preprocessing and train augmentations, numpy, channels-last
+(X, Y, Z, C).
 
-The eval half of ``brats21_tpu/data/transforms.py`` (label codecs, z-score,
-foreground crop, the divisible pad and its inverses), copied so the port has
-no import of the JAX package. The train augmentations come with the training
-slice.
+``brats21_tpu/data/transforms.py`` (label codecs, z-score, foreground crop,
+the pads and their inverses, the MONAI-semantics random augmentations),
+copied so the port has no import of the JAX package. The boundary losses'
+distance map comes with a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+from scipy import ndimage
 
 # ---------------------------------------------------------------------------
 # BraTS label codecs (utils/transforms.py:145-206)
@@ -111,6 +114,27 @@ def crop_foreground(img: np.ndarray, *extra: np.ndarray,
     return cropped, extras, start, end
 
 
+def _symmetric_pads(shape: Sequence[int], target: Sequence[int]) -> List[Tuple[int, int]]:
+    """MONAI symmetric pad rule: floor-half before, rest after."""
+    pads = []
+    for cur, tgt in zip(shape, target):
+        p = max(tgt - cur, 0)
+        pads.append((p // 2, p - p // 2))
+    return pads
+
+
+def spatial_pad(arr: np.ndarray, target: Sequence[int]) -> np.ndarray:
+    """Pad spatial dims up to ``target`` (MONAI SpatialPadd, definer.py:452)."""
+    pads = _symmetric_pads(arr.shape[:3], target) + [(0, 0)] * (arr.ndim - 3)
+    return np.pad(arr, pads)
+
+
+def divisible_pad(arr: np.ndarray, k: int = 8) -> np.ndarray:
+    """Pad spatial dims to multiples of k (MONAI DivisiblePadd, definer.py:465)."""
+    target = [int(math.ceil(s / k)) * k for s in arr.shape[:3]]
+    return spatial_pad(arr, target)
+
+
 def shape_to_divisible(arr: np.ndarray, k: int = 8,
                        min_shape: Optional[int] = None,
                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -155,7 +179,82 @@ def remove_background_voxels(img: np.ndarray, outputs: np.ndarray) -> np.ndarray
 
 
 # ---------------------------------------------------------------------------
-# Composed eval front half (definer.py:481-493, 561-567)
+# Random augmentations (MONAI 0.6 semantics; definer.py:458-464)
+# ---------------------------------------------------------------------------
+
+
+def rand_spatial_crop(rng: np.random.Generator, roi: Sequence[int],
+                      *arrays: np.ndarray) -> Tuple[np.ndarray, ...]:
+    """Random fixed-size crop (RandSpatialCropd random_size=False)."""
+    shape = arrays[0].shape[:3]
+    starts = [int(rng.integers(0, max(s - r, 0) + 1)) for s, r in zip(shape, roi)]
+    sl = tuple(slice(st, st + r) for st, r in zip(starts, roi))
+    return tuple(a[sl] for a in arrays)
+
+
+def rand_rotate90(rng: np.random.Generator, prob: float, axes: Tuple[int, int],
+                  *arrays: np.ndarray) -> Tuple[np.ndarray, ...]:
+    """RandRotate90d(prob, spatial_axes): k ~ randint(1..3) (definer.py:459)."""
+    if rng.random() >= prob:
+        return arrays
+    k = int(rng.integers(0, 3)) + 1
+    return tuple(np.ascontiguousarray(np.rot90(a, k, axes)) for a in arrays)
+
+
+def rand_flip(rng: np.random.Generator, prob: float, axes: Sequence[int],
+              *arrays: np.ndarray) -> Tuple[np.ndarray, ...]:
+    """RandFlipd(prob, spatial_axis=(0,1,2)): all listed axes flip together
+    when triggered (definer.py:460)."""
+    if rng.random() >= prob:
+        return arrays
+    return tuple(np.ascontiguousarray(np.flip(a, axes)) for a in arrays)
+
+
+def rand_shift_intensity(rng: np.random.Generator, prob: float, offsets: float,
+                         img: np.ndarray) -> np.ndarray:
+    """RandShiftIntensityd(prob=0.7, offsets=0.1) (definer.py:461)."""
+    if rng.random() >= prob:
+        return img
+    return img + float(rng.uniform(-offsets, offsets))
+
+
+def rand_adjust_contrast(rng: np.random.Generator, prob: float,
+                         gamma: Tuple[float, float], img: np.ndarray) -> np.ndarray:
+    """RandAdjustContrastd(prob=0.2, gamma=(0.5, 4.5)) (definer.py:462):
+    ((img − min)/range)^γ · range + min."""
+    if rng.random() >= prob:
+        return img
+    g = float(rng.uniform(*gamma))
+    mn = img.min()
+    span = img.max() - mn
+    return ((img - mn) / (span + 1e-7)) ** g * span + mn
+
+
+def rand_gaussian_noise(rng: np.random.Generator, prob: float, mean: float,
+                        std: float, img: np.ndarray) -> np.ndarray:
+    """RandGaussianNoised(prob=0.5, std=0.1): noise std ~ U(0, std)
+    (definer.py:463)."""
+    if rng.random() >= prob:
+        return img
+    s = float(rng.uniform(0, std))
+    return img + rng.normal(mean, s, size=img.shape).astype(img.dtype)
+
+
+def rand_gaussian_smooth(rng: np.random.Generator, prob: float, img: np.ndarray,
+                         sigma_range: Tuple[float, float] = (0.25, 1.5)) -> np.ndarray:
+    """RandGaussianSmoothd(prob=0.2) with MONAI's default per-axis σ ranges
+    (definer.py:464); a channel-wise 3D gaussian filter."""
+    if rng.random() >= prob:
+        return img
+    sigmas = [float(rng.uniform(*sigma_range)) for _ in range(3)]
+    out = np.empty_like(img)
+    for c in range(img.shape[-1]):
+        out[..., c] = ndimage.gaussian_filter(img[..., c], sigmas)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Composed pipelines (definer.py:448-505, 481-493, 561-567)
 # ---------------------------------------------------------------------------
 
 
@@ -199,3 +298,36 @@ def compute_distance_map_fn(seg_mc: np.ndarray) -> np.ndarray:
     raise NotImplementedError(
         "distance maps need the EDT envelope kernel, which comes with the "
         "EDT slice of the port (ROADMAP A9/B3)")
+
+
+def augment_train_sample(sample: Dict[str, np.ndarray], rng: np.random.Generator,
+                         patch_size: Sequence[int], normalize: bool = True,
+                         remove_outliers: bool = False) -> Dict[str, np.ndarray]:
+    """The random back half of the train pipeline (definer.py:452-468):
+    SpatialPad → RandSpatialCrop → RandRotate90(p .7, axes 0, 2) →
+    RandFlip(p .7) → intensity augmentations → DivisiblePad(8), then, with
+    ``normalize``, the z-score on the augmented raw intensities, last, as
+    the reference does."""
+    keys = [k for k in ("img", "seg") if k in sample]
+    arrays = [sample[k] for k in keys]
+    patch = list(patch_size)
+    if any(p > 0 for p in patch):
+        arrays = [spatial_pad(a, patch) for a in arrays]
+        arrays = list(rand_spatial_crop(rng, patch, *arrays))
+    arrays = list(rand_rotate90(rng, 0.7, (0, 2), *arrays))
+    arrays = list(rand_flip(rng, 0.7, (0, 1, 2), *arrays))
+    out = dict(zip(keys, arrays))
+    img = out["img"]
+    img = rand_shift_intensity(rng, 0.7, 0.1, img)
+    img = rand_adjust_contrast(rng, 0.2, (0.5, 4.5), img)
+    img = rand_gaussian_noise(rng, 0.5, 0.0, 0.1, img)
+    img = rand_gaussian_smooth(rng, 0.2, img)
+    out["img"] = img.astype(np.float32)
+    for k in keys:
+        out[k] = divisible_pad(out[k], 8)
+    if normalize:
+        out["img"] = normalize_intensity(out["img"], nonzero=True, channel_wise=True,
+                                         remove_outliers=remove_outliers)
+    for k in ("foreground_start_coord", "foreground_end_coord", "original_shape"):
+        out[k] = sample[k]
+    return out

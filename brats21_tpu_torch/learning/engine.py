@@ -1,9 +1,16 @@
-"""Serial single-device evaluation: ensemble × TTA → post-process → NIfTI.
+"""Training epochs, and serial single-device evaluation: ensemble × TTA →
+post-process → NIfTI.
 
-Port of the serial branch of ``brats21_tpu/learning/engine.py``
-``Engine.evaluate`` (reference engine.py:163-296) for cases without a
-target (``--on test``): pad each case to a multiple of 8 (``_pad_case``),
-copy it to the card in fp16 as the JAX package's dense wire does, run each
+``Engine.train_epoch`` ports ``brats21_tpu/learning/engine.py:256-348``:
+each batch crosses to the card as the JAX package's wire has it (fp16
+images, uint8 targets, from pinned memory without blocking) and is cast
+there; step i−1's metrics are read only after step i is enqueued, so the
+card never waits on the host's read.
+
+``Engine.evaluate`` ports the serial branch of ``Engine.evaluate``
+(reference engine.py:163-296) for cases without a target (``--on test``):
+pad each case to a multiple of 8 (``_pad_case``), copy it to the card in
+fp16 as the JAX package's dense wire does, run each
 member — the plain forward or the 16-combo TTA mean — and take the fp32
 sigmoid of the main head, average the members, post-process, zero the
 prediction outside the brain, and un-pad, un-crop and write the labels.
@@ -26,6 +33,8 @@ from ..data import transforms as T
 from ..data.nifti import write_nifti
 from ..ops.postprocess import post_process
 from ..ops.tta import main_head, tta_mean_probs
+from ..utils.meter import AverageMeter, ProgressMeter
+from .train_state import TrainState, TrainStep, swa_update
 
 logger = get_logger("engine")
 
@@ -38,12 +47,74 @@ def forward_main_head(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 
 class Engine:
-    """Evaluation on one device. ``cfg`` carries ``no_amp``,
-    ``num_classes`` and ``create_patient_dir``."""
+    """Training and evaluation on one device. ``cfg`` carries ``no_amp``,
+    ``num_classes``, ``create_patient_dir`` and, for training,
+    ``log_train_interval``, ``log_train_metrics`` and ``swa_start``."""
 
     def __init__(self, cfg: Any, device: torch.device):
         self.cfg = cfg
         self.device = device
+
+    # ------------------------------------------------------------------ train
+
+    def to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """Host batch → the card: pinned, copied without blocking."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def train_epoch(self, state: TrainState, step: TrainStep, loader,
+                    epoch: int) -> Dict[str, AverageMeter]:
+        """One epoch (engine.py:256-348): batch loop → train step → meters,
+        then the SWA update past ``swa_start``."""
+        cfg = self.cfg
+        loader.set_epoch(epoch)
+        batch_time = AverageMeter("time", ":6.3f")
+        data_time = AverageMeter("data", ":6.3f")
+        losses = AverageMeter("loss", ":.4e")
+        gnorms = AverageMeter("grad_norm", ":.3f")
+        meters = [batch_time, data_time, losses, gnorms]
+        dice_meter = AverageMeter("dice", ":.4f") if cfg.log_train_metrics else None
+        if dice_meter is not None:
+            meters.append(dice_meter)
+        progress = ProgressMeter(len(loader), meters, prefix=f"Epoch: [{epoch}]")
+        pending: Optional[Tuple[Dict[str, torch.Tensor], int, int]] = None
+        t_done = time.time()
+
+        def collect(entry) -> None:
+            nonlocal t_done
+            metrics, n, i = entry
+            losses.update(float(metrics["loss"]), n=n)     # waits for step i
+            gnorms.update(float(metrics["grad_norm"]))
+            if dice_meter is not None:
+                dice_meter.update(metrics["dice"].cpu().numpy())
+            batch_time.update(time.time() - t_done)
+            t_done = time.time()
+            if (i + 1) % cfg.log_train_interval == 0 or (i + 1) == len(loader):
+                progress.display(i + 1)
+
+        wire = np.float32 if cfg.no_amp else np.float16
+        t0 = time.time()
+        for i, batch in enumerate(loader):
+            img = self.to_device(batch["img"].astype(wire))
+            target = self.to_device(batch["seg"].astype(np.uint8)).float()
+            data_time.update(time.time() - t0)
+            # [B, X, Y, Z, C] → NCDHW views in channels_last_3d memory
+            metrics = step(state, img.permute(0, 4, 1, 2, 3),
+                           target.permute(0, 4, 1, 2, 3))
+            if pending is not None:
+                collect(pending)          # step i is already enqueued
+            pending = (metrics, batch["img"].shape[0], i)
+            t0 = time.time()
+        if pending is not None:
+            collect(pending)
+        if cfg.swa_start and epoch > cfg.swa_start:
+            swa_update(state)
+        return {"loss": losses, "grad_norm": gnorms, "batch_time": batch_time,
+                "data_time": data_time}
+
+    # --------------------------------------------------------------- evaluate
 
     def _pad_case(self, img: np.ndarray, use_tta: bool
                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

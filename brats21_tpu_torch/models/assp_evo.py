@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels.evonorm import evonorm_s0
+from ..ops.kernels.evonorm import EvoNormS0Function
 from .equiunet import DeepHead
 from .layers import (Conv3d, Dropout, from_kernel_layout, global_avg_pool,
                      max_avg_pool, to_kernel_layout, upsample)
@@ -27,8 +27,9 @@ class EvoNorm3D(nn.Module):
     """EvoNorm S0 (equiunet2021.py:55-118), in the form the model uses
     (efficient swish, affine): ``x·sigmoid(x) / group_std(x)·γ + β`` with
     the unbiased group variance, run by the hand-written
-    :func:`evonorm_s0`. The efficient swish ignores ``v``, which is still
-    allocated, as is the B0 variant's ``running_var`` buffer, so reference
+    :func:`evonorm_s0` through its trainable :class:`EvoNormS0Function`.
+    The efficient swish ignores ``v``, which is still allocated, as is the
+    B0 variant's ``running_var`` buffer, so reference
     checkpoints load with a plain ``load_state_dict``. B0 comes with the
     model-zoo slice."""
 
@@ -44,8 +45,9 @@ class EvoNorm3D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[1]
-        y = evonorm_s0(to_kernel_layout(x), self.gamma.reshape(c),
-                       self.beta.reshape(c), min(self.groups, c), self.eps)
+        y = EvoNormS0Function.apply(to_kernel_layout(x), self.gamma.reshape(c),
+                                    self.beta.reshape(c), min(self.groups, c),
+                                    self.eps)
         return from_kernel_layout(y)
 
 

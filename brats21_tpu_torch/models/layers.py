@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels.conv3d import conv3x3x3
+from ..ops.kernels.conv3d import Conv3x3x3Function
 
 def to_kernel_layout(x: torch.Tensor) -> torch.Tensor:
     """NCDHW → the kernels' contiguous ``[B, D, H, W, C]``; free for a
@@ -35,8 +35,9 @@ class Conv3d(nn.Conv3d):
     Stride 1, one group and a bias, as every conv of the served model. The
     case the JAX package hands to its Pallas kernel (k=3, dilation 1, hence
     pad 1; ``layers.py:258-261``) goes to the hand-written
-    :func:`conv3x3x3`; every other conv is ``F.conv3d``, as the JAX package
-    leaves those to XLA."""
+    :func:`conv3x3x3` through its trainable
+    :class:`Conv3x3x3Function`; every other conv is ``F.conv3d``, as the
+    JAX package leaves those to XLA."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  dilation: int = 1):
@@ -51,8 +52,9 @@ class Conv3d(nn.Conv3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(x.dtype)
         if self.uses_kernel:
-            y = conv3x3x3(to_kernel_layout(x), w.permute(2, 3, 4, 1, 0).contiguous(),
-                          self.bias.float())
+            y = Conv3x3x3Function.apply(
+                to_kernel_layout(x), w.permute(2, 3, 4, 1, 0).contiguous(),
+                self.bias.float())
             return from_kernel_layout(y)
         return F.conv3d(x, w, self.bias.to(x.dtype), padding=self.padding,
                         dilation=self.dilation)

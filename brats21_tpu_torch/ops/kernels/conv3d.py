@@ -17,7 +17,12 @@ shape.
 
 Layout contract (the JAX package's): x ``[B, D, H, W, C_in]`` contiguous,
 w ``[3, 3, 3, C_in, C_out]`` in x's dtype, bias ``[C_out]`` fp32; the output
-is ``[B, D, H, W, C_out]`` in x's dtype. There is no backward yet.
+is ``[B, D, H, W, C_out]`` in x's dtype.
+
+:class:`Conv3x3x3Function` makes it trainable as ``conv3d_kernel.py:141-156``
+does: the forward is the kernel, the backward is the plain version's
+(:func:`conv3x3x3_plain_grads`) from the saved (x, w), with no hand-written
+backward kernel, as the JAX package has none.
 """
 
 from __future__ import annotations
@@ -44,6 +49,27 @@ def conv3x3x3_plain(x: torch.Tensor, w: torch.Tensor,
     y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.to(x.dtype).permute(4, 3, 0, 1, 2),
                  padding=1)
     return y.permute(0, 2, 3, 4, 1) + bias.to(y.dtype)
+
+
+def conv3x3x3_plain_grads(x: torch.Tensor, w: torch.Tensor, grad: torch.Tensor,
+                          needs=(True, True, True)):
+    """(dx, dw, dbias) of :func:`conv3x3x3_plain` at (x, w) for the output
+    gradient ``grad``, each None where ``needs`` says so: the convolution's
+    own backward (``aten.convolution_backward``, the node autograd of the
+    plain version runs, without re-running the forward it does not need)
+    and the bias add's sum in the output's dtype. Equal to autograd of
+    :func:`conv3x3x3_plain` bit for bit."""
+    dx = dw = dbias = None
+    if needs[0] or needs[1]:
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            grad.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3),
+            w.to(x.dtype).permute(4, 3, 0, 1, 2), None, [1, 1, 1], [1, 1, 1],
+            [1, 1, 1], False, [0, 0, 0], 1, [bool(needs[0]), bool(needs[1]), False])
+        dx = dx.permute(0, 2, 3, 4, 1) if needs[0] else None
+        dw = dw.permute(2, 3, 4, 1, 0).to(w.dtype) if needs[1] else None
+    if needs[2]:
+        dbias = grad.sum(dim=(0, 1, 2, 3))
+    return dx, dw, dbias
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,3 +139,23 @@ def conv3x3x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Ten
     if out.shape[-1] != c_out:
         out = out[..., :c_out].contiguous()
     return out
+
+
+class Conv3x3x3Function(torch.autograd.Function):
+    """Trainable :func:`conv3x3x3` (``conv3d_kernel.py:141-156``): the
+    forward is the wrapper (the CUDA kernel on a card, the plain version on
+    the CPU), the backward :func:`conv3x3x3_plain_grads` from the saved
+    (x, w). The backward launches no hand-written kernel."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor
+                ) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        ctx.bias_dtype = bias.dtype
+        return conv3x3x3(x, w, bias)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        x, w = ctx.saved_tensors
+        dx, dw, dbias = conv3x3x3_plain_grads(x, w, grad, ctx.needs_input_grad)
+        return dx, dw, None if dbias is None else dbias.to(ctx.bias_dtype)

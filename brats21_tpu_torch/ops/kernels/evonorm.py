@@ -19,8 +19,12 @@ reduction materialises on the TPU. ``_merge_kernel`` (one program per
 at full volume, where an fp32 sum of squares would lose the variance.
 Pass 2 (``_apply_kernel``) reads x once more, applies the formula in fp32
 and writes the output once. Three launches and no other device op keep a
-call cheap on the host too, which bounds the small deep levels. There is
-no backward yet.
+call cheap on the host too, which bounds the small deep levels.
+
+:class:`EvoNormS0Function` makes it trainable as ``evonorm_kernel.py:118-138``
+does: the forward is the kernels, the backward autograd of
+:func:`evonorm_s0_plain` recomputed from the saved (x, γ, β), with no
+hand-written backward kernel, as the JAX package has none.
 
 Layout contract (the JAX package's): x ``[B, D, H, W, C]`` contiguous,
 gamma and beta ``[C]`` fp32.
@@ -208,3 +212,28 @@ def evonorm_s0(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             num_warps=4)
     launches += 1
     return y
+
+
+class EvoNormS0Function(torch.autograd.Function):
+    """Trainable :func:`evonorm_s0` (``evonorm_kernel.py:118-138``): the
+    forward is the wrapper (the Triton kernels on a card, the plain version
+    on the CPU), the backward autograd of :func:`evonorm_s0_plain`
+    recomputed from the saved (x, γ, β). The backward launches no
+    hand-written kernel."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                groups: int = 8, eps: float = 1e-5) -> torch.Tensor:
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.groups, ctx.eps = groups, eps
+        return evonorm_s0(x, gamma, beta, groups, eps)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        needs = ctx.needs_input_grad[:3]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+        with torch.enable_grad():
+            out = evonorm_s0_plain(*inputs, ctx.groups, ctx.eps)
+        wanted = [t for t, n in zip(inputs, needs) if n]
+        got = iter(torch.autograd.grad(out, wanted, grad))
+        return (*(next(got) if n else None for n in needs), None, None)

@@ -6,7 +6,8 @@
 Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. build the hand-written kernels from the sources in this checkout (the
-   CUDA conv with nvcc, the Triton EvoNorm by its first launch);
+   CUDA conv and EDT envelope with nvcc, both at once, the Triton EvoNorm
+   by its first launch);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the served case gives it, and time kernel, plain version and,
    where one exists, the one PyTorch call computing the same function;
@@ -18,7 +19,23 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    before and read just after, and must show one forward (14 convs, 21
    EvoNorms);
 5. the same case through the CLI with ``--tta`` (16 forwards);
-6. where one served case's time goes, stage by stage.
+6. where one served case's time goes, stage by stage;
+7. the EDT envelope kernel against its plain version, bit for bit, on every
+   axis pass of ``edt_sq`` over the train step's masks (3×128³) and over a
+   240×240×155 mask with sampling (1, 1, 1.5), ``edt_sq`` against scipy on
+   the host, and the kernel's time beside its bound;
+8. the trainable conv3x3x3 and EvoNorm-S0 (``autograd.Function``s) against
+   autograd of their plain versions on the card, at the train step's
+   level-1 and level-4 shapes, bf16 and fp32;
+9. the training path through the train CLI: EquiUnetASSPEvo w48, 128³
+   patches, ``--criterion dice_hd --optimizer ranger --decay_type cosine
+   --use_gc --remove_outliers``, one epoch over four synthetic 240×240×155
+   cases; the counters are zeroed before each step's forward and read after
+   it and after its backward and optimizer step (14 / 21 / 18 launches
+   forward, none backward); then the inference CLI serves the trained
+   ``best_model.pth``;
+10. where one train step's time goes: forward, loss (of which EDT),
+    backward and optimizer, by CUDA events.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -34,6 +51,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 SEED = 20211
@@ -46,6 +64,17 @@ PEAK_BYTES = 3.35e12
 # exp, add, reciprocal (sigmoid), three multiplies and an add (output)
 EVONORM_OPS = 11
 CASE_SHAPE = (240, 240, 155)
+PATCH = (128, 128, 128)         # the train step's patch (arguments.py:52-53)
+# EDT operations per output of one envelope pass. The function needs the
+# O(n) lower envelope of parabolas (Felzenszwalb & Huttenlocher): per
+# output at most two intersections (two squares, two adds, a subtract, a
+# doubling, a divide each), the compares of its push and fill loops, and
+# ((i − v)·s)² + f[v]; about 25. The kernel's O(n²) scan, 4 per candidate
+# ((i − j)·s, its square, the add and the min), gives the scan bound kept
+# beside it.
+EDT_ENVELOPE_OPS = 25
+EDT_SCAN_OPS = 4
+TRAIN_STEP_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=18)
 # per forward of EquiUnetASSPEvo w48: (level, C_in, C_out, count) of the 3³
 # convs and (level, C, count) of the EvoNorms; level l is the padded case
 # shape // 2**(l-1)
@@ -214,21 +243,37 @@ def check_model(dev) -> None:
             f"{(g - w_).abs().max().item():.3g}")
 
 
+def tf32_default() -> None:
+    """Put TF32 back to PyTorch's default (on for cuDNN) before a CLI runs:
+    the CLI must turn it off itself (:func:`check_tf32_off`)."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def check_tf32_off(cli: str) -> None:
+    import torch
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"the {cli} CLI ran on the card with TF32 on")
+
+
 def run_cli(argv, dev) -> dict:
     """The inference CLI with the kernels' counters zeroed just before and
     read just after."""
     import torch
     from brats21_tpu_torch.cli.main_inference import main
-    from brats21_tpu_torch.ops.kernels import conv3d, evonorm
+    from brats21_tpu_torch.ops.kernels import conv3d, edt, evonorm
+    mods = dict(conv3x3x3=conv3d, evonorm_s0=evonorm, edt_envelope=edt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    conv3d.launches = 0
-    evonorm.launches = 0
+    tf32_default()
+    for m in mods.values():
+        m.launches = 0
     t0 = time.time()
     case_times = main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = dict(conv3x3x3=conv3d.launches, evonorm_s0=evonorm.launches)
+    check_tf32_off("inference")
+    counts = {k: m.launches for k, m in mods.items()}
     return dict(wall_s=wall, case_s=case_times, launches=counts,
                 peak_bytes=torch.cuda.max_memory_allocated(dev))
 
@@ -276,6 +321,256 @@ def stage_breakdown(model, data: Path, out: Path, dev) -> dict:
     return dict(stages_s=stages, forward_ms=forward_ms)
 
 
+def check_edt(dev) -> dict:
+    """The EDT envelope kernel against its plain version on the card, bit
+    for bit, on every axis pass of edt_sq: the train step's masks (B·C = 3
+    of 128³, random) and one 240×240×155 mask with sampling (1, 1, 1.5);
+    edt_sq against scipy on the host for one 128³ mask; the kernel and the
+    plain version timed per launch at the train step's shape."""
+    import numpy as np
+    import torch
+    from scipy import ndimage
+    from brats21_tpu_torch.ops.edt import edt_sq
+    from brats21_tpu_torch.ops.kernels.edt import INF, envelope, envelope_plain
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rows, max_err = [], 0.0
+    for shape, sampling in (((3, *PATCH), (1.0, 1.0, 1.0)),
+                            ((1, *CASE_SHAPE), (1.0, 1.0, 1.5))):
+        mask = torch.rand(shape, generator=gen, device=dev) > 0.5
+        f = torch.where(mask, INF, 0.0)
+        for ax in range(3):
+            got = envelope(f, sampling[ax], ax + 1)
+            want = envelope_plain(f, sampling[ax], ax + 1)
+            err = (got - want).abs().max().item()
+            if not torch.equal(got, want):
+                raise AssertionError(f"edt envelope {shape} axis {ax + 1}: not bit-equal "
+                                     f"to the plain version (max |err| {err:.3g})")
+            max_err = max(max_err, err)
+            if shape[0] == 3:
+                numel, n = f.numel(), shape[ax + 1]
+                b_ms, by = bound(EDT_ENVELOPE_OPS * numel, PEAK_FP32, 8.0 * numel)
+                scan_ms, _ = bound(EDT_SCAN_OPS * numel * n, PEAK_FP32, 8.0 * numel)
+                row = dict(shape=list(shape), axis=ax + 1, sampling=sampling[ax],
+                           ms=time_ms(lambda: envelope(f, sampling[ax], ax + 1)),
+                           plain_ms=time_ms(lambda: envelope_plain(f, sampling[ax], ax + 1),
+                                            iters=2),
+                           bound_ms=b_ms, bound_by=by, scan_bound_ms=scan_ms,
+                           max_abs_err=err)
+                rows.append(row)
+                log(f"edt envelope {shape} axis {ax + 1}: bit-equal; kernel "
+                    f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
+                    f"{b_ms:.4f} ms ({by}; O(n²) scan bound {scan_ms:.3f} ms)")
+            f = got
+        log(f"edt_sq {shape} sampling {sampling}: every pass bit-equal to the plain version")
+    one = (torch.rand((1, *PATCH), generator=gen, device=dev) > 0.3)
+    got = edt_sq(one)[0].cpu().numpy()
+    want = ndimage.distance_transform_edt(one[0].cpu().numpy()) ** 2
+    if not np.allclose(got, want, rtol=1e-6, atol=1e-3):
+        raise AssertionError(f"edt_sq vs scipy: max |err| {np.abs(got - want).max():.3g}")
+    log(f"edt_sq 128³ vs scipy: max |err| {np.abs(got - want).max():.3g}")
+    per_sq = {k: sum(r[k] for r in rows)
+              for k in ("ms", "plain_ms", "bound_ms", "scan_bound_ms")}
+    # a train step runs 6 edt_sq (target and prediction of 3 heads)
+    steps = TRAIN_STEP_LAUNCHES["edt_envelope"] // 3
+    return dict(rows=rows, max_abs_err=max_err, bound_by=rows[0]["bound_by"],
+                **{k: steps * v for k, v in per_sq.items()})
+
+
+def check_grads(dev) -> dict:
+    """conv3x3x3 and evonorm_s0 through their autograd.Functions (kernel
+    forward, plain backward) against autograd of their plain versions on
+    the same card tensors, at the train step's level-1 and level-4 shapes,
+    fp32 and bf16. The backwards launch no hand-written kernel."""
+    import torch
+    from brats21_tpu_torch.ops.kernels import conv3d, edt, evonorm
+    from brats21_tpu_torch.ops.kernels.conv3d import Conv3x3x3Function, conv3x3x3_plain
+    from brats21_tpu_torch.ops.kernels.evonorm import EvoNormS0Function, evonorm_s0_plain
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    out = {}
+    d1, d4 = PATCH, tuple(s // 8 for s in PATCH)
+    cases = [("conv3x3x3", d1, 48, 48), ("conv3x3x3", d4, 384, 384),
+             ("evonorm_s0", d1, 48, None), ("evonorm_s0", d4, 384, None)]
+    for name, spatial, c, cout in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((1, *spatial, c), generator=gen, device=dev).to(dtype)
+            if name == "conv3x3x3":
+                w = (torch.randn((3, 3, 3, c, cout), generator=gen, device=dev)
+                     / (27 * c) ** 0.5).to(dtype)
+                b = 0.1 * torch.randn((cout,), generator=gen, device=dev)
+                fn, plain, grads = Conv3x3x3Function.apply, conv3x3x3_plain, ("dx", "dw", "dbias")
+                args = [x, w, b]
+                ct_shape = (1, *spatial, cout)
+            else:
+                x = x + 0.5
+                g = 1.0 + 0.1 * torch.randn((c,), generator=gen, device=dev)
+                b = 0.1 * torch.randn((c,), generator=gen, device=dev)
+                fn, plain, grads = EvoNormS0Function.apply, evonorm_s0_plain, ("dx", "dgamma", "dbeta")
+                args = [x, g, b]
+                ct_shape = x.shape
+            ct = torch.randn(ct_shape, generator=gen, device=dev).to(dtype)
+            args = [a.detach().requires_grad_() for a in args]
+            y = fn(*args)
+            counts = (conv3d.launches, evonorm.launches, edt.launches)
+            got = torch.autograd.grad(y, args, ct)
+            torch.cuda.synchronize()
+            if (conv3d.launches, evonorm.launches, edt.launches) != counts:
+                raise AssertionError(f"{name}: the backward launched a hand-written kernel")
+            want = torch.autograd.grad(plain(*args), args, ct)
+            rel = 1e-2 if dtype == torch.bfloat16 else 1e-5
+            errs = {}
+            for gname, gg, ww in zip(grads, got, want):
+                err = (gg.float() - ww.float()).abs().max().item()
+                tol = rel * ww.float().abs().max().item() + 1e-6
+                if not err <= tol:
+                    raise AssertionError(f"{name} {gname} {dtype} at {spatial}: max |err| "
+                                         f"{err:.3g} > {tol:.3g}")
+                errs[gname] = err
+            key = f"{name} {str(dtype)[6:]} {'x'.join(map(str, spatial))}x{c}"
+            out[key] = errs
+            log(f"{key} grads vs plain autograd: " + ", ".join(
+                f"{k} {v:.3g}" for k, v in errs.items()))
+            del x, args, y, got, want, ct
+    return out
+
+
+class StepProbe:
+    """Wraps TrainStep's two halves for the training phase: zeroes the
+    kernels' counters before each step's forward, reads them after it and
+    after the backward and optimizer step, and records CUDA events around
+    each step and the host clock at each step's start (the interval takes
+    in the loader's wait)."""
+
+    def __init__(self):
+        import torch
+        from brats21_tpu_torch.learning.train_state import TrainStep
+        from brats21_tpu_torch.ops.kernels import conv3d, edt, evonorm
+        self.mods = dict(conv3x3x3=conv3d, evonorm_s0=evonorm, edt_envelope=edt)
+        self.forward, self.backward, self.events, self.host_t = [], [], [], []
+        self.cls = TrainStep
+        self.orig = (TrainStep.forward_loss, TrainStep.backward_update)
+        probe = self
+
+        def forward_loss(step, state, img, target):
+            probe.host_t.append(time.time())
+            for m in probe.mods.values():
+                m.launches = 0
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = probe.orig[0](step, state, img, target)
+            probe.forward.append({k: m.launches for k, m in probe.mods.items()})
+            probe.events.append([start])
+            return out
+
+        def backward_update(step, state, loss):
+            before = {k: m.launches for k, m in probe.mods.items()}
+            out = probe.orig[1](step, state, loss)
+            probe.backward.append({k: m.launches - before[k] for k, m in probe.mods.items()})
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            probe.events[-1].append(end)
+            return out
+
+        TrainStep.forward_loss, TrainStep.backward_update = forward_loss, backward_update
+
+    def close(self) -> None:
+        self.cls.forward_loss, self.cls.backward_update = self.orig
+
+    def step_ms(self) -> list:
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def run_training(data: Path, runs: Path, dev) -> dict:
+    """The train CLI on the card, probed step by step; returns launches per
+    step, step times, the CLI wall, the peak memory and the run directory."""
+    import statistics
+
+    import torch
+    from brats21_tpu_torch.cli.main_train import main as train_main
+    argv = ["--train_data_path", str(data), "--save_path", str(runs), "--device", "0",
+            "--model", "equiunet_assp_evo", "--width", "48", "--criterion", "dice_hd",
+            "--optimizer", "ranger", "--decay_type", "cosine", "--learning_rate", "3e-4",
+            "--use_gc", "--remove_outliers", "--fold", "None", "--epochs", "1",
+            "--num_workers", "2"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tf32_default()
+    probe = StepProbe()
+    t0 = time.time()
+    try:
+        result = train_main(argv)
+        torch.cuda.synchronize()
+    finally:
+        probe.close()
+    wall = time.time() - t0
+    check_tf32_off("train")
+    step_ms = probe.step_ms()
+    run_dir, = [p for p in runs.iterdir() if p.is_dir()]
+    host_ms = [1e3 * (b - a) for a, b in zip(probe.host_t, probe.host_t[1:])]
+    return dict(result=result, wall_s=wall, steps=len(step_ms), step_ms=step_ms,
+                step_ms_median_after_first=statistics.median(step_ms[1:]),
+                host_interval_ms=host_ms,
+                forward_launches=probe.forward, backward_launches=probe.backward,
+                peak_bytes=torch.cuda.max_memory_allocated(dev), run_dir=str(run_dir))
+
+
+def train_step_breakdown(dev, iters: int = 3) -> dict:
+    """Where one train step's time goes on one 128³ batch (w48, bf16,
+    dice_hd, Ranger with GC): forward, loss (of which the EDT maps: the
+    six one_hot2hd_dist calls of the three heads), backward and optimizer,
+    each between CUDA events; the median over ``iters`` steps after a
+    warm-up step."""
+    import statistics
+    from types import SimpleNamespace
+
+    import torch
+    from brats21_tpu_torch.learning.losses import (_dist_maps, _probs2one_hot,
+                                                   deep_supervision_loss, make_criterion)
+    from brats21_tpu_torch.learning.optimizers import make_optimizer
+    from brats21_tpu_torch.models import get_model
+    cfg = SimpleNamespace(criterion="dice_hd", num_classes=3, optimizer="ranger",
+                          learning_rate=3e-4, weight_decay=1e-5, decay_type="cosine",
+                          epochs=1, use_gc=True, use_gcnorm=False, normloss=False,
+                          normloss_factor=1e-4, gc_conv_only=False, swa_start=None)
+    torch.manual_seed(SEED)
+    model = get_model({"model": "equiunet_assp_evo", "width": 48}).to(dev).train()
+    opt = make_optimizer(cfg, model.parameters(), 1)
+    criterion = make_criterion(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    x = torch.randn((1, *PATCH, 4), generator=gen, device=dev).to(torch.bfloat16)
+    x = x.permute(0, 4, 1, 2, 3)
+    tgt = (torch.rand((1, *PATCH, 3), generator=gen, device=dev) > 0.7).float()
+    tgt = tgt.permute(0, 4, 1, 2, 3)
+    names = ("forward", "loss", "backward", "optimizer", "edt_maps")
+    times = {k: [] for k in names}
+    for it in range(iters + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        outputs = model(x)
+        ev[1].record()
+        loss = deep_supervision_loss(criterion, outputs, tgt)
+        ev[2].record()
+        opt.zero_grad()
+        loss.backward()
+        ev[3].record()
+        opt.step()
+        ev[4].record()
+        with torch.no_grad():
+            heads = [outputs[0]] + list(outputs[1])
+            ev[5].record()
+            for h in heads:
+                _dist_maps(tgt)
+                _dist_maps(_probs2one_hot(torch.sigmoid(h.float())))
+            ev[6].record()
+        torch.cuda.synchronize()
+        if it:
+            for k, (a, b) in zip(names, ((0, 1), (1, 2), (2, 3), (3, 4), (5, 6))):
+                times[k].append(ev[a].elapsed_time(ev[b]))
+        del outputs, loss
+    out = {k: statistics.median(v) for k, v in times.items()}
+    out["step"] = out["forward"] + out["loss"] + out["backward"] + out["optimizer"]
+    return out
+
+
 def check_segmentation(path: Path) -> None:
     import numpy as np
     from brats21_tpu_torch.data.nifti import read_nifti
@@ -304,6 +599,8 @@ def main() -> int:
     from brats21_tpu_torch.ops import kernels
 
     t_start = time.time()
+    # fp32 references for the kernel and gradient checks; the CLIs turn
+    # TF32 off themselves, which run_cli and run_training check
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -316,10 +613,12 @@ def main() -> int:
     work.mkdir(parents=True)
     os.environ.setdefault("TRITON_CACHE_DIR", str(kernels.BUILD_DIR / "triton"))
 
-    # 1. build: nvcc in the background while Triton compiles and the case is made
+    # 1. build: one nvcc per CUDA source, all in the background, while
+    # Triton compiles and the case is made
     t0 = time.time()
-    build = kernels.start_build("conv3x3x3.cu")
+    builds = [kernels.start_build(src) for src in ("conv3x3x3.cu", "edt_envelope.cu")]
     from brats21_tpu_torch.ops.kernels.conv3d import conv3x3x3
+    from brats21_tpu_torch.ops.kernels.edt import envelope
     from brats21_tpu_torch.ops.kernels.evonorm import evonorm_s0
     for c in sorted({c for _, c, _ in EVONORM_CALLS}):
         evonorm_s0(torch.ones((1, 2, 2, 2, c), device=dev),
@@ -327,13 +626,14 @@ def main() -> int:
     data = work / "data"
     generate_synthetic_dataset(str(data), num_cases=1, shape=CASE_SHAPE, seed=SEED,
                                with_seg=False)
-    ptxas = kernels.finish_build(build)
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"ptxas: {line.strip()}")
+    for build in builds:
+        for line in kernels.finish_build(build).splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"ptxas: {line.strip()}")
     conv3x3x3(torch.ones((1, 2, 2, 2, 8), device=dev, dtype=torch.bfloat16),
               torch.ones((3, 3, 3, 8, 8), device=dev, dtype=torch.bfloat16),
               torch.zeros(8, device=dev))
+    envelope(torch.zeros((2, 8), device=dev))
     torch.cuda.synchronize()
     log(f"phase 1 build: {time.time() - t0:.1f}s")
 
@@ -369,7 +669,7 @@ def main() -> int:
     main_run = run_cli(base + ["--output", str(work / "out")], dev)
     seg_dir = work / "out" / "Inference_segmentations_test"
     check_segmentation(seg_dir / "BraTS2021_00000.nii.gz")
-    want = dict(conv3x3x3=14, evonorm_s0=21)
+    want = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=0)
     if main_run["launches"] != want:
         raise AssertionError(f"main path launches {main_run['launches']} != {want}")
     log(f"phase 4 main path: CLI wall {main_run['wall_s']:.2f}s, case "
@@ -391,24 +691,100 @@ def main() -> int:
     # 6. where the served case's time goes
     breakdown = stage_breakdown(model.to(dev).eval(), data, work / "out_stages", dev)
     log(f"phase 6 stages: {json.dumps(breakdown)}")
+    del model
+    torch.cuda.empty_cache()
+
+    # 7. the EDT envelope kernel vs its plain version
+    t0 = time.time()
+    edt_res = check_edt(dev)
+    torch.cuda.empty_cache()
+    log(f"phase 7 EDT kernel vs plain: {time.time() - t0:.1f}s")
+
+    # 8. trainable conv / EvoNorm grads vs plain autograd, and both kernels
+    # timed at the train step's 128³ level shapes
+    t0 = time.time()
+    grads = check_grads(dev)
+    torch.cuda.empty_cache()
+    conv_train = check_conv(lambda level: tuple(s // 2 ** (level - 1) for s in PATCH), dev)
+    evo_train = check_evonorm(lambda level: tuple(s // 2 ** (level - 1) for s in PATCH), dev)
+    torch.cuda.empty_cache()
+    log(f"phase 8 grads and train-shape kernels: {time.time() - t0:.1f}s")
+
+    # 9. the training path through the CLI, then the trained weights served
+    t0 = time.time()
+    train_data = work / "train_data"
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(lambda i: generate_synthetic_dataset(
+            str(train_data), num_cases=1, shape=CASE_SHAPE, seed=SEED + 10, first_case=i),
+            range(4)))
+    log(f"phase 9 data: 4 cases of {CASE_SHAPE} in {time.time() - t0:.1f}s")
+    train = run_training(train_data, work / "runs", dev)
+    if train["steps"] < 4:
+        raise AssertionError(f"training ran {train['steps']} steps, not 4")
+    for i, (fwd, bwd) in enumerate(zip(train["forward_launches"], train["backward_launches"])):
+        if fwd != TRAIN_STEP_LAUNCHES or any(bwd.values()):
+            raise AssertionError(f"train step {i}: forward launches {fwd} (want "
+                                 f"{TRAIN_STEP_LAUNCHES}), backward {bwd} (want none)")
+    if not math.isfinite(train["result"]["train_loss"]):
+        raise AssertionError(f"train loss {train['result']['train_loss']}")
+    run_dir = Path(train["run_dir"])
+    served = run_cli(["--config", str(run_dir / "config.yaml"), "--import_pth",
+                      str(run_dir / "best_model.pth"), "--on", "test", "--input", str(data),
+                      "--device", "0", "--output", str(work / "out_trained")], dev)
+    check_segmentation(work / "out_trained" / "Inference_segmentations_test"
+                       / "BraTS2021_00000.nii.gz")
+    # every step's count was checked equal above: the count per step
+    train_launches = train["forward_launches"][0]
+    log(f"phase 9 training: {train['steps']} steps, loss {train['result']['train_loss']:.4f}, "
+        f"step {train['step_ms_median_after_first']:.1f} ms (median after the first; "
+        f"all {[round(t, 1) for t in train['step_ms']]}; host clock between step starts "
+        f"{[round(t, 1) for t in train['host_interval_ms']]}), CLI wall {train['wall_s']:.1f}s, "
+        f"peak {train['peak_bytes'] / 2**30:.2f} GiB, launches per step "
+        f"{train['forward_launches'][0]} forward, {train['backward_launches'][0]} backward; "
+        f"served the trained best_model.pth in {served['wall_s']:.2f}s")
+
+    # 10. where one train step's time goes
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    step_split = train_step_breakdown(dev)
+    log(f"phase 10 train step split (ms): {json.dumps(step_split)} in {time.time() - t0:.1f}s")
 
     kernel_rows = []
-    for name, route, source, replaces, tolerance, res in (
+    for name, route, source, replaces, tolerance, res, res_train, ms_per in (
             ("conv3x3x3", "cuda", "brats21_tpu_torch/csrc/conv3x3x3.cu",
              "brats21_tpu/ops/pallas/conv3d_kernel.py:86",
-             "bf16 1e-2*max|ref|, fp32 1e-4*max|ref| (fp32 reference, TF32 off)", conv),
+             "bf16 1e-2*max|ref|, fp32 1e-4*max|ref| (fp32 reference, TF32 off)", conv,
+             conv_train, "served forward"),
             ("evonorm_s0", "triton", "brats21_tpu_torch/ops/kernels/evonorm.py",
              "brats21_tpu/ops/pallas/evonorm_kernel.py:55",
-             "bf16 2**-8*|ref| elementwise, fp32 1e-5 abs", evo)):
-        kernel_rows.append(dict(
-            name=name, route=route, source=source, replaces=replaces,
-            launches=main_run["launches"][name], max_abs_err=res["max_abs_err"],
-            tolerance=tolerance,
-            ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
-            bound_by="operations" if res["ops_ms"] >= res["bytes_ms"] else "bytes",
-            library_ms=res.get("library_ms"), per_forward=True, shapes=res["rows"]))
+             "bf16 2**-8*|ref| elementwise, fp32 1e-5 abs", evo, evo_train,
+             "served forward"),
+            ("edt_envelope", "cuda", "brats21_tpu_torch/csrc/edt_envelope.cu",
+             "brats21_tpu/ops/pallas/edt_kernel.py:42", "bit-equal to the plain version",
+             edt_res, None, "train step")):
+        row = dict(name=name, route=route, source=source, replaces=replaces,
+                   launches=train_launches[name], launches_per="train step",
+                   steps=train["steps"], max_abs_err=res["max_abs_err"],
+                   tolerance=tolerance, ms=res["ms"], plain_ms=res["plain_ms"],
+                   bound_ms=res["bound_ms"],
+                   bound_by=res.get("bound_by") or (
+                       "operations" if res["ops_ms"] >= res["bytes_ms"] else "bytes"),
+                   library_ms=res.get("library_ms"), ms_per=ms_per,
+                   launches_by_path=dict(inference_case=main_run["launches"][name],
+                                         train_step=train_launches[name]),
+                   shapes=res["rows"])
+        if "scan_bound_ms" in res:
+            row["scan_bound_ms"] = res["scan_bound_ms"]
+        if res_train is not None:
+            row["train_step_shapes"] = {k: res_train[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "rows") if k in res_train}
+        kernel_rows.append(row)
+    train.pop("forward_launches")
+    train.pop("backward_launches")
     summary = dict(card=card, padded_case=list(padded), main_path=main_run,
-                   tta=tta_run, stages=breakdown, total_s=time.time() - t_start)
+                   tta=tta_run, stages=breakdown, grads_max_abs_err=grads, train=train,
+                   trained_served=served, train_step_split_ms=step_split,
+                   total_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": kernel_rows}))

@@ -1,7 +1,9 @@
 """The port's hand-written kernels on a card: each CUDA/Triton kernel held
 against its plain PyTorch version on the same CUDA tensors, at ragged
 shapes the main path's level sizes do not reach (odd H/W, C_in = 4, C_out
-not a multiple of the tile). Marked ``cuda``: without a card every test
+not a multiple of the tile; EDT lines of odd length, longer than a block,
+on every axis), and the trainable conv / EvoNorm against autograd of their
+plain versions. Marked ``cuda``: without a card every test
 skips. On a machine with one, from the repository root:
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
@@ -13,9 +15,13 @@ import pytest
 import torch
 
 from brats21_tpu_torch.models import get_model
-from brats21_tpu_torch.ops.kernels import conv3d, evonorm
-from brats21_tpu_torch.ops.kernels.conv3d import conv3x3x3, conv3x3x3_plain
-from brats21_tpu_torch.ops.kernels.evonorm import evonorm_s0, evonorm_s0_plain
+from brats21_tpu_torch.ops.edt import edt_sq
+from brats21_tpu_torch.ops.kernels import conv3d, edt, evonorm
+from brats21_tpu_torch.ops.kernels.conv3d import (Conv3x3x3Function, conv3x3x3,
+                                                  conv3x3x3_plain)
+from brats21_tpu_torch.ops.kernels.edt import INF, envelope, envelope_plain
+from brats21_tpu_torch.ops.kernels.evonorm import (EvoNormS0Function, evonorm_s0,
+                                                   evonorm_s0_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -132,3 +138,79 @@ def test_model_on_card_matches_cpu(dev):
     assert (conv3d.launches - c0, evonorm.launches - e0) == (14, 21)
     for g, w in [(got, want)] + list(zip(got_deeps, want_deeps)):
         torch.testing.assert_close(g.cpu(), w, atol=1e-3, rtol=1e-3)
+
+
+EDT_CASES = [((3, 17, 9, 11), 1.0), ((2, 5, 300, 7), 1.5), ((1, 33, 40, 155), 1.5),
+             ((1, 240, 3, 2), 1.0), ((70, 1), 1.0)]
+
+
+@pytest.mark.parametrize("shape,sampling", EDT_CASES)
+def test_edt_envelope_matches_plain_bit_for_bit(dev, shape, sampling):
+    """Every axis, odd lengths, a line longer than a block (300), inner
+    strides of 1, 2, 7 and 33, with the 1e12 sentinels and finite values."""
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    g = torch.where(torch.rand(shape, generator=gen, device=dev) > 0.5, INF, 0.0)
+    g = g + torch.randint(0, 3, shape, generator=gen, device=dev).float()
+    for axis in range(g.dim()):
+        before = edt.launches
+        got = envelope(g, sampling, axis)
+        torch.cuda.synchronize()
+        assert edt.launches == before + 1
+        assert torch.equal(got, envelope_plain(g, sampling, axis)), f"axis {axis}"
+
+
+def test_edt_sq_on_card_matches_scipy(dev):
+    import numpy as np
+    from scipy import ndimage
+    mask = np.random.default_rng(1).random((2, 21, 19, 23)) > 0.4
+    got = edt_sq(torch.from_numpy(mask).to(dev), (1.0, 2.0, 1.5)).cpu().numpy()
+    for k in range(2):
+        want = ndimage.distance_transform_edt(mask[k], sampling=(1.0, 2.0, 1.5)) ** 2
+        np.testing.assert_allclose(got[k], want, rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_trainable_kernels_grads_match_plain_autograd(dev, dtype):
+    """Conv3x3x3Function and EvoNormS0Function (kernel forward, plain
+    backward) against autograd of the plain versions: fp32 within
+    1e-5·max|ref|, bf16 within 1e-2·max|ref|; the backward launches no
+    hand-written kernel."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((1, 7, 9, 6, 8), generator=gen, device=dev).to(dtype)
+    w = (0.1 * torch.randn((3, 3, 3, 8, 24), generator=gen, device=dev)).to(dtype)
+    b = torch.randn(24, generator=gen, device=dev)
+    g = 1.0 + 0.1 * torch.randn(24, generator=gen, device=dev)
+    beta = 0.1 * torch.randn(24, generator=gen, device=dev)
+    for fn, plain, args, ct_shape in (
+            (Conv3x3x3Function.apply, conv3x3x3_plain, [x, w, b], (1, 7, 9, 6, 24)),
+            (EvoNormS0Function.apply, evonorm_s0_plain, [x.repeat(1, 1, 1, 1, 3), g, beta],
+             (1, 7, 9, 6, 24))):
+        args = [a.detach().requires_grad_() for a in args]
+        ct = torch.randn(ct_shape, generator=gen, device=dev).to(dtype)
+        y = fn(*args)
+        counts = (conv3d.launches, evonorm.launches)
+        got = torch.autograd.grad(y, args, ct)
+        assert (conv3d.launches, evonorm.launches) == counts
+        want = torch.autograd.grad(plain(*args), args, ct)
+        rel = 1e-5 if dtype == torch.float32 else 1e-2
+        for gg, ww in zip(got, want):
+            assert gg.shape == ww.shape and gg.dtype == ww.dtype
+            assert (gg.float() - ww.float()).abs().max().item() <= \
+                rel * ww.float().abs().max().item() + 1e-6
+
+
+def test_hd_loss_on_card_matches_cpu(dev):
+    """dice_hd on channels-last views (as the train loader's batches reach
+    the loss, B = 1): the card (EDT kernel) against the CPU (plain
+    envelope), within 1e-5 relative; 6 envelope launches."""
+    from brats21_tpu_torch.learning.losses import make_criterion
+    gen = torch.Generator().manual_seed(3)
+    logits = torch.randn((1, 20, 18, 16, 3), generator=gen).permute(0, 4, 1, 2, 3)
+    target = (torch.rand((1, 20, 18, 16, 3), generator=gen) > 0.7).float()
+    target = target.permute(0, 4, 1, 2, 3)
+    loss = make_criterion({"criterion": "dice_hd"})
+    before = edt.launches
+    got = loss(logits.to(dev), target.to(dev)).item()
+    assert edt.launches == before + 6
+    want = loss(logits, target).item()
+    assert abs(got - want) <= 1e-5 * abs(want)

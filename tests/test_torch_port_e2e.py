@@ -16,6 +16,7 @@ from brats21_tpu_torch.cli.main_inference import main as port_infer_main
 from brats21_tpu_torch.config import TrainConfig
 from brats21_tpu_torch.data.synthetic import generate_synthetic_dataset
 from brats21_tpu_torch.models import get_model
+from test_torch_port_kernels import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

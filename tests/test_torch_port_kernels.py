@@ -17,6 +17,18 @@ CONV_CASES = [((1, 6, 11, 7, 5), 9), ((2, 5, 16, 8, 4), 6),
               ((1, 4, 13, 17, 4), 8), ((1, 5, 9, 7, 8), 8)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread per test process: the suite runs six xdist
+    workers, each also holding XLA's thread pools, and torch's default of
+    one thread per core oversubscribes the host (measured: the port's CPU
+    tests ran twice as long)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def interpret(monkeypatch):
     monkeypatch.setenv("BRATS21_PALLAS", "interpret")

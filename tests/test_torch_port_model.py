@@ -17,6 +17,7 @@ from brats21_tpu_torch.learning.engine import forward_main_head
 from brats21_tpu_torch.models import get_model
 from brats21_tpu_torch.ops.tta import COMBOS, tta_mean_probs
 from brats21_tpu_torch.utils.weights import load_reference_pth, state_dict_from_flax
+from test_torch_port_kernels import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = {"model": "equiunet_assp_evo", "width": 8}
 

@@ -21,6 +21,7 @@ from brats21_tpu_torch.data import nifti, pipeline
 from brats21_tpu_torch.data import transforms as T
 from brats21_tpu_torch.data.discovery import create_database, make_file_records
 from brats21_tpu_torch.ops import postprocess as P
+from test_torch_port_kernels import one_torch_thread  # noqa: F401  (autouse)
 
 from test_cli_surface import REFERENCE_INFERENCE_FLAGS
 
