@@ -4,10 +4,11 @@ NVIDIA H100.
 The package mirrors ``brats21_tpu``'s layout so that each counterpart is
 found by path. Modules take and return NCDHW tensors (the reference
 checkpoints' convention) whose memory is ``torch.channels_last_3d``, i.e.
-physically the JAX package's ``[B, D, H, W, C]``. The two Pallas kernels of
-the serving path are hand-written for Hopper (``ops/kernels``): a CUDA C++
-implicit-GEMM 3×3×3 conv and a Triton EvoNorm-S0. The package imports
-neither JAX nor anything of ``brats21_tpu``.
+physically the JAX package's ``[B, D, H, W, C]``. The JAX package's Pallas
+kernels are hand-written for Hopper in CUDA C++ (``ops/kernels``,
+``csrc/``): a ``wgmma``/TMA implicit-GEMM 3×3×3 conv, EvoNorm-S0 and the
+EDT envelope. The package imports neither JAX nor anything of
+``brats21_tpu``.
 
 Reference logger setup: src/__init__.py:6-37.
 """

@@ -5,8 +5,7 @@ the same function, and a ``launches`` counter. A wrapper given a CPU tensor
 runs the plain version; given a CUDA tensor it launches the kernel or
 raises. CUDA C++ sources (``csrc/*.cu``) are compiled at first use with
 ``nvcc`` into a shared library with a plain C interface under
-``brats21_tpu_torch/_build/`` and bound with ``ctypes``; Triton kernels are
-compiled by Triton at their first launch.
+``brats21_tpu_torch/_build/`` and bound with ``ctypes``.
 """
 
 from __future__ import annotations

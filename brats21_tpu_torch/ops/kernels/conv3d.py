@@ -4,16 +4,21 @@ Replaces ``brats21_tpu/ops/pallas/conv3d_kernel.py:_conv3x3x3_pallas``
 (kernel body ``_conv_kernel`` :52), which builds an im2col block in VMEM and
 issues one MXU dot per tile. On the H100 the same work — 2·M·C_out·27·C_in
 operations on (C_in + C_out) bytes per voxel — is far above the card's
-ridge point at the model's widths, so the tensor cores bound it. The kernels
-(``csrc/conv3x3x3.cu``) keep im2col out of device memory too: each block
-gathers its [128 voxels × 32 k] tile straight into shared memory with a
-zero halo, stages the [32 k × 64 or 128 C_out] weight tile, and runs bf16
-WMMA fragments with fp32 accumulation; the bias is fused into the epilogue.
-In bf16 both tiles arrive by ``cp.async``, 16 bytes (8 channels) a copy,
-through a 4-deep ring, so the wrapper zero-pads C_in and C_out to multiples
-of 8 (the model's 4-channel stem; ragged test shapes). fp32 inputs
-(``--no_amp``) take a plain FMA tile kernel in the same library, at any
-shape.
+ridge point at the model's widths, so the tensor cores bound it. The bf16
+kernel (``csrc/conv3x3x3.cu``) is a warp-specialised ``wgmma`` implicit
+GEMM: a block computes a brick of 4×8×8 (at 48 channels) or 2×8×8 output
+voxels for one N tile of 48, 96 or 192 output channels; a producer warp brings each 8-channel input
+box with its halo in one TMA load (the out-of-bounds fill is the zero
+halo) and the weights as one bulk copy per group of taps; every tap is a
+shifted window of the same box, read by the ``wgmma`` descriptor directly.
+Where bricks × N tiles fall under one wave of the card's SMs, K is split
+over C_in chunks into an fp32 workspace and summed by a second launch.
+fp32 inputs (``--no_amp``) take a plain FMA tile kernel in the same
+library, at any shape.
+
+The host side lives here: :func:`conv_plan` (C_in padded to 16, the N tile,
+bricks and split-K count) and :func:`pack_weights` (the layout the kernel's
+descriptors read).
 
 Layout contract (the JAX package's): x ``[B, D, H, W, C_in]`` contiguous,
 w ``[3, 3, 3, C_in, C_out]`` in x's dtype, bias ``[C_out]`` fp32; the output
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +46,67 @@ launches = 0
 
 SOURCE = "conv3x3x3.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+NUM_SMS = 132                # H100 SXM: one block of the bf16 kernel per SM
+BRICK_HW = (8, 8)            # output voxels (h, w) of one block's brick
+K_CHUNK = 16                 # input channels per K chunk (one wgmma k16 step)
+N_TILES = (48, 96, 192)      # wgmma widths the library is built for
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """How the bf16 kernel covers one call: x padded to ``c_in`` channels,
+    the output to ``c_out`` = ``bn`` · ``n_tiles``; a grid of ``bricks`` ×
+    ``n_tiles`` × ``splits`` blocks, split ``s`` running K chunks
+    [s·``chunks_per_split``, (s + 1)·``chunks_per_split``) ∩ [0, ``chunks``).
+    With ``brick`` = (bd, 8, 8), block x = ((b·nd + dz)·nh + hy)·nw + wx
+    computes voxels (bd·dz + [0, bd), 8·hy + [0, 8), 8·wx + [0, 8)),
+    masked to the volume."""
+
+    c_in: int
+    c_out: int
+    bn: int
+    n_tiles: int
+    brick: tuple
+    bricks_dhw: tuple
+    bricks: int
+    chunks: int
+    splits: int
+    chunks_per_split: int
+
+
+def conv_plan(b: int, d: int, h: int, w: int, c_in: int, c_out: int) -> ConvPlan:
+    """The launch plan of the bf16 kernel. K is split only where the grid
+    of bricks × N tiles is under one wave of ``NUM_SMS`` blocks: into at
+    least two parts and as many as fill one wave, bounded by the chunks."""
+    c_in_p = -(-c_in // K_CHUNK) * K_CHUNK
+    bn = next((n for n in N_TILES if c_out <= n), N_TILES[-1])
+    n_tiles = -(-c_out // bn)
+    brick = (4 if bn == 48 else 2, *BRICK_HW)    # Cfg<BN>::BRICK_D in the source
+    bricks_dhw = tuple(-(-s // k) for s, k in zip((d, h, w), brick))
+    bricks = b * bricks_dhw[0] * bricks_dhw[1] * bricks_dhw[2]
+    chunks = c_in_p // K_CHUNK
+    grid = bricks * n_tiles
+    splits = 1 if grid >= NUM_SMS else min(chunks, max(2, NUM_SMS // grid))
+    per_split = -(-chunks // splits)
+    splits = -(-chunks // per_split)
+    return ConvPlan(c_in_p, bn * n_tiles, bn, n_tiles, brick, bricks_dhw, bricks, chunks,
+                    splits, per_split)
+
+
+def pack_weights(w: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
+    """w ``[3, 3, 3, C_in, C_out]`` zero-padded to the plan's channels and
+    reordered into the kernel's B operand, flat, with the index map
+
+        packed[nt, c, tap, half, ng, n8, k8]
+            = w[tap // 9, tap // 3 % 3, tap % 3, 16·c + 8·half + k8, bn·nt + 8·ng + n8]
+
+    so each (N tile nt, K chunk c) holds 27 taps of K-major core matrices
+    (8 output channels × 8 input channels, 128 bytes) and any run of taps
+    is one contiguous copy."""
+    c_in, c_out = w.shape[3], w.shape[4]
+    w = F.pad(w, (0, plan.c_out - c_out, 0, plan.c_in - c_in))
+    w = w.reshape(27, plan.chunks, 2, 8, plan.n_tiles, plan.bn // 8, 8)
+    return w.permute(4, 1, 0, 2, 5, 6, 3).contiguous()
 
 
 def conv3x3x3_plain(x: torch.Tensor, w: torch.Tensor,
@@ -75,7 +142,7 @@ def conv3x3x3_plain_grads(x: torch.Tensor, w: torch.Tensor, grad: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
-    lib.brats_conv3x3x3.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+    lib.brats_conv3x3x3.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
     lib.brats_conv3x3x3.restype = ctypes.c_int
     lib.brats_cuda_error_string.argtypes = [ctypes.c_int]
@@ -116,22 +183,29 @@ def conv3x3x3(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Ten
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3x3: no kernel for device {x.device}")
     _check(x, w, bias)
-    c_out = w.shape[-1]
-    pad_in, pad_out = -x.shape[-1] % 8, -c_out % 8
-    if x.dtype == torch.bfloat16 and (pad_in or pad_out):
-        # the bf16 kernel copies 8 channels at a time: zero channels add nothing
-        x = F.pad(x, (0, pad_in))
-        w = F.pad(w, (0, pad_out, 0, pad_in))
-        bias = F.pad(bias, (0, pad_out))
     b, d, h, wd, c_in = x.shape
-    out = torch.empty((b, d, h, wd, w.shape[-1]), dtype=x.dtype, device=x.device)
+    c_out = w.shape[-1]
+    ws = None
+    if x.dtype == torch.bfloat16:
+        plan = conv_plan(b, d, h, wd, c_in, c_out)
+        # zero channels add nothing: C_in to whole k16 steps, C_out to N tiles
+        x = F.pad(x, (0, plan.c_in - c_in)) if plan.c_in != c_in else x
+        w = pack_weights(w, plan)
+        bias = F.pad(bias, (0, plan.c_out - c_out))
+        args = (plan.c_in, plan.c_out, _DTYPES[x.dtype], plan.bn, plan.splits)
+        if plan.splits > 1:
+            ws = torch.empty((plan.splits, b * d * h * wd, plan.c_out),
+                             dtype=torch.float32, device=x.device)
+    else:
+        args = (c_in, c_out, _DTYPES[x.dtype], 0, 1)
+    out = torch.empty((b, d, h, wd, args[1]), dtype=x.dtype, device=x.device)
     lib = _library()
     # the library launches on the current device: make it x's
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.brats_conv3x3x3(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                                 out.data_ptr(), b, d, h, wd, c_in, w.shape[-1],
-                                 _DTYPES[x.dtype], stream)
+                                 out.data_ptr(), None if ws is None else ws.data_ptr(),
+                                 b, d, h, wd, *args, stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3x3 launch failed: "
                            f"{lib.brats_cuda_error_string(rc).decode()}")

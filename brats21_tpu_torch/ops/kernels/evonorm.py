@@ -1,5 +1,5 @@
-"""EvoNorm-S0 forward — three Triton kernels: split group statistics, their
-fp64 merge, then one fused apply pass.
+"""EvoNorm-S0 forward — CUDA C++: one ctypes call enqueues two kernels, the
+group statistics with their merge, then one fused apply pass.
 
 Replaces ``brats21_tpu/ops/pallas/evonorm_kernel.py:evonorm_s0_pallas``
 (apply body ``_apply_kernel`` :45; the group statistics ``_group_inv_std``
@@ -9,17 +9,18 @@ gives inv = rsqrt(var + eps); then out = x·sigmoid(x)·inv·γ + β, all in
 fp32, stored in x's dtype.
 
 Bound on the H100: a few operations per element against 2 bytes read and
-2 written in bf16, so device memory bounds it. The design moves as few
-bytes as the two-pass maths allows. Pass 1 (``_stats_kernel``) splits each
-sample's voxels over many programs; each reads its rows [rows × C] once,
-keeps per-channel (mean, M2) over its tiles with Chan's merge in fp32, and
-writes one partial per channel — never a full fp32 copy of x, which XLA's
-reduction materialises on the TPU. ``_merge_kernel`` (one program per
-(b, g)) merges the partials in fp64: n reaches ~5·10⁷ elements per group
-at full volume, where an fp32 sum of squares would lose the variance.
-Pass 2 (``_apply_kernel``) reads x once more, applies the formula in fp32
-and writes the output once. Three launches and no other device op keep a
-call cheap on the host too, which bounds the small deep levels.
+2 written in bf16, so device memory bounds it; at the deep levels the
+host's cost per call does. ``csrc/evonorm_s0.cu``: every thread owns a fixed
+16-byte channel vector (narrower where C does not allow it) and strides
+over the rows of one sample. The statistics kernel keeps Welford (n, mean,
+M2) per channel in fp32, merges them per (block, group) in shared memory,
+and the last block of each sample to finish (an atomic ticket) merges the
+partials in fp64 — n reaches ~3·10⁷ per group at full volume, where an fp32
+sum of squares would lose the variance — and writes inv. The apply kernel
+reads x once more and writes the output once. Both must read x, which is
+ten times the L2 at the largest level, so the design moves 6 bytes an
+element against the 4 of the bound. One ctypes call, two launches and two
+``torch.empty`` keep a call cheap on the host.
 
 :class:`EvoNormS0Function` makes it trainable as ``evonorm_kernel.py:118-138``
 does: the forward is the kernels, the backward autograd of
@@ -32,15 +33,62 @@ gamma and beta ``[C]`` fp32.
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import math
+from dataclasses import dataclass
 
 import torch
 
-#: launches (one per call: stats, merge and apply) since the last reset
+from . import load_library
+
+#: launches (one per call: the statistics and the apply kernel) since the last reset
 launches = 0
 
-STATS_TILES = 16    # tiles of rows merged in registers by one stats program
-TILE_ELEMS = 4096   # elements of x one program holds per tile
+SOURCE = "evonorm_s0.cu"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+THREADS = 256           # threads of a block (csrc/evonorm_s0.cu)
+UNROLL = 4              # rows a thread has in flight (csrc/evonorm_s0.cu)
+STATS_BLOCKS = 396      # one wave of the statistics kernel: 132 SMs × 3 blocks
+APPLY_BLOCKS = 1056     # one wave of the apply kernel: 132 SMs × 8 blocks
+MAX_BATCH = 1024        # samples the per-device ticket buffer holds
+
+
+@dataclass(frozen=True)
+class EvoPlan:
+    """Thread ``t`` of a block owns channels (t % tpr)·vec + [0, vec) of row
+    lane t // tpr (lanes 0 … rpi − 1). The statistics kernel's grid of
+    (``blocks``, B) strides over each sample's S rows from the last: row r
+    goes to block ((S − 1 − r) // rpi) % blocks, which writes one partial
+    per group. The apply kernel's (``apply_blocks``, B) strides from the
+    first."""
+
+    vec: int
+    tpr: int
+    rpi: int
+    blocks: int
+    apply_blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def evonorm_plan(b: int, s: int, c: int, itemsize: int, align: int = 16) -> EvoPlan:
+    """The launch plan for x ``[b, s rows, c]`` of ``itemsize``-byte
+    elements whose address is a multiple of ``align`` bytes: 16-byte
+    vectors where C and the address allow, else the widest that divides
+    both; enough blocks to fill the card where each thread still gets
+    ``UNROLL`` rows (fewer partials to merge at the small levels), none
+    without a row."""
+    vec = 16 // itemsize
+    while vec > 1 and (c % vec or align % (vec * itemsize)):
+        vec //= 2
+    tpr = c // vec
+    if tpr > THREADS:
+        raise ValueError(f"evonorm_s0: {c} channels need {tpr} threads a row, "
+                         f"more than a block's {THREADS}")
+    rpi = THREADS // tpr
+    lanes = -(-s // (rpi * UNROLL))
+    return EvoPlan(vec, tpr, rpi, max(1, min(lanes, -(-STATS_BLOCKS // b))),
+                   max(1, min(lanes, -(-APPLY_BLOCKS // b))))
 
 
 def evonorm_s0_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -61,101 +109,23 @@ def evonorm_s0_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _kernels():
-    """The Triton kernels, defined at first use: Triton is imported only
-    where a kernel launches."""
-    import triton
-    import triton.language as tl
+def _library() -> ctypes.CDLL:
+    lib = load_library(SOURCE)
+    lib.brats_evonorm_s0.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 5
+        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.brats_evonorm_s0.restype = ctypes.c_int
+    lib.brats_evonorm_error_string.argtypes = [ctypes.c_int]
+    lib.brats_evonorm_error_string.restype = ctypes.c_char_p
+    return lib
 
-    @triton.jit
-    def _stats_kernel(x_ptr, mean_ptr, m2_ptr, S, C, n_progs,
-                      BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr,
-                      TILES: tl.constexpr):
-        # program (b, p): rows [p*BLOCK_S*TILES, +BLOCK_S*TILES) of sample b
-        b = tl.program_id(0)
-        p = tl.program_id(1)
-        cols = tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        row0 = p * (BLOCK_S * TILES)
-        mean_a = tl.zeros([BLOCK_C], dtype=tl.float32)
-        m2_a = tl.zeros([BLOCK_C], dtype=tl.float32)
-        for t in range(TILES):
-            start = row0 + t * BLOCK_S
-            rows = start + tl.arange(0, BLOCK_S)
-            rmask = rows < S
-            m = rmask[:, None] & cmask[None, :]
-            offs = (b * S + rows).to(tl.int64)[:, None] * C + cols[None, :]
-            xt = tl.load(x_ptr + offs, mask=m, other=0.0).to(tl.float32)
-            n_a = tl.minimum(tl.maximum(S - row0, 0), t * BLOCK_S).to(tl.float32)
-            n_b = tl.minimum(tl.maximum(S - start, 0), BLOCK_S).to(tl.float32)
-            n = n_a + n_b
-            mean_b = tl.sum(xt, axis=0) / tl.maximum(n_b, 1.0)
-            dev = tl.where(m, xt - mean_b[None, :], 0.0)
-            m2_b = tl.sum(dev * dev, axis=0)
-            # Chan's merge of (n_a, mean_a, m2_a) with the tile's stats
-            delta = mean_b - mean_a
-            w_b = n_b / tl.maximum(n, 1.0)
-            mean_a = mean_a + delta * w_b
-            m2_a = m2_a + m2_b + delta * delta * n_a * w_b
-        out = (b * n_progs + p) * C + cols
-        tl.store(mean_ptr + out, mean_a, mask=cmask)
-        tl.store(m2_ptr + out, m2_a, mask=cmask)
 
-    @triton.jit
-    def _apply_kernel(x_ptr, y_ptr, inv_ptr, gamma_ptr, beta_ptr, S, C, R,
-                      BLOCK_S: tl.constexpr, BLOCK_C: tl.constexpr):
-        # rows [pid*BLOCK_S, +BLOCK_S) of x viewed as [R = B*S, C]
-        rows = tl.program_id(0) * BLOCK_S + tl.arange(0, BLOCK_S)
-        cols = tl.arange(0, BLOCK_C)
-        rmask = rows < R
-        cmask = cols < C
-        m = rmask[:, None] & cmask[None, :]
-        offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
-        x = tl.load(x_ptr + offs, mask=m, other=0.0).to(tl.float32)
-        bidx = rows // S
-        inv = tl.load(inv_ptr + bidx[:, None] * C + cols[None, :], mask=m, other=0.0)
-        gam = tl.load(gamma_ptr + cols, mask=cmask, other=0.0)
-        bet = tl.load(beta_ptr + cols, mask=cmask, other=0.0)
-        y = x * tl.sigmoid(x) * inv * gam[None, :] + bet[None, :]
-        tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=m)
-
-    @triton.jit(do_not_specialize=["S"])
-    def _merge_kernel(mean_ptr, m2_ptr, inv_ptr, S, C, CG, P, ROWS, eps,
-                      BLOCK_P: tl.constexpr, BLOCK_CG: tl.constexpr):
-        # program (b, g): merge the group's P × CG per-program, per-channel
-        # partials in fp64 — the group mean first, then
-        # M2 = Σ M2_p + Σ n_p·(mean_p − mean)² — and write the group's
-        # inverse std for each of its CG channels
-        b = tl.program_id(0)
-        g = tl.program_id(1)
-        ch = g * CG + tl.arange(0, BLOCK_CG)
-        cmask = tl.arange(0, BLOCK_CG) < CG
-        n = S.to(tl.float64) * CG
-        tot = tl.zeros([BLOCK_P, BLOCK_CG], dtype=tl.float64)
-        for p0 in range(0, P, BLOCK_P):
-            ps = p0 + tl.arange(0, BLOCK_P)
-            m = (ps < P)[:, None] & cmask[None, :]
-            cnt = tl.minimum(S - ps * ROWS, ROWS).to(tl.float64)
-            offs = (b * P + ps)[:, None] * C + ch[None, :]
-            mu_p = tl.load(mean_ptr + offs, mask=m, other=0.0).to(tl.float64)
-            tot += tl.where(m, mu_p * cnt[:, None], 0.0)
-        mu = tl.sum(tl.sum(tot, axis=1), axis=0) / n
-        acc = tl.zeros([BLOCK_P, BLOCK_CG], dtype=tl.float64)
-        for p0 in range(0, P, BLOCK_P):
-            ps = p0 + tl.arange(0, BLOCK_P)
-            m = (ps < P)[:, None] & cmask[None, :]
-            cnt = tl.minimum(S - ps * ROWS, ROWS).to(tl.float64)
-            offs = (b * P + ps)[:, None] * C + ch[None, :]
-            mu_p = tl.load(mean_ptr + offs, mask=m, other=0.0).to(tl.float64)
-            m2_p = tl.load(m2_ptr + offs, mask=m, other=0.0).to(tl.float64)
-            d = mu_p - mu
-            acc += tl.where(m, m2_p + cnt[:, None] * d * d, 0.0)
-        var = tl.sum(tl.sum(acc, axis=1), axis=0) / tl.maximum(n - 1.0, 1.0)
-        inv = (1.0 / tl.sqrt(var + eps)).to(tl.float32)
-        tl.store(inv_ptr + b * C + ch, tl.zeros([BLOCK_CG], tl.float32) + inv,
-                 mask=cmask)
-
-    return triton, _stats_kernel, _merge_kernel, _apply_kernel
+@functools.lru_cache(maxsize=None)
+def _tickets(device: torch.device) -> torch.Tensor:
+    """The statistics kernel's per-sample tickets on ``device``: zeroed
+    once, and left zero by every launch. Calls on one device are ordered by
+    its stream; two streams must not run the kernel at once."""
+    return torch.zeros(MAX_BATCH, dtype=torch.int32, device=device)
 
 
 def _check(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -180,43 +150,40 @@ def evonorm_s0(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                groups: int = 8, eps: float = 1e-5) -> torch.Tensor:
     """EvoNorm-S0 of x ``[B, ..., C]`` (channels last), output in x's dtype.
     CPU tensors take :func:`evonorm_s0_plain`; CUDA tensors launch the
-    Triton kernels on the current stream."""
+    CUDA kernels on the current stream."""
     global launches
     if x.device.type == "cpu":
         return evonorm_s0_plain(x, gamma, beta, groups, eps)
     if x.device.type != "cuda":
         raise ValueError(f"evonorm_s0: no kernel for device {x.device}")
     _check(x, gamma, beta, groups)
-    triton, stats_kernel, merge_kernel, apply_kernel = _kernels()
     b, c = x.shape[0], x.shape[-1]
+    if b > MAX_BATCH:
+        raise ValueError(f"evonorm_s0: batch {b} over {MAX_BATCH}")
     s = x.numel() // (b * c)
     g = min(groups, c)
-    block_c = triton.next_power_of_2(c)
-    block_s = max(1, TILE_ELEMS // block_c)
-    rows_per_prog = block_s * STATS_TILES
-    n_progs = triton.cdiv(s, rows_per_prog)
-    # Triton launches on the current device: make it x's
-    with torch.cuda.device(x.device):
-        mean = torch.empty((b, n_progs, c), dtype=torch.float32, device=x.device)
-        m2 = torch.empty_like(mean)
-        stats_kernel[(b, n_progs)](x, mean, m2, s, c, n_progs, BLOCK_S=block_s,
-                                   BLOCK_C=block_c, TILES=STATS_TILES, num_warps=4)
-        block_cg = triton.next_power_of_2(c // g)
-        inv = torch.empty((b, c), dtype=torch.float32, device=x.device)
-        merge_kernel[(b, g)](mean, m2, inv, s, c, c // g, n_progs, rows_per_prog, eps,
-                             BLOCK_P=max(16, 1024 // block_cg), BLOCK_CG=block_cg,
-                             num_warps=4)
-        y = torch.empty_like(x)
-        apply_kernel[(triton.cdiv(b * s, block_s),)](
-            x, y, inv, gamma, beta, s, c, b * s, BLOCK_S=block_s, BLOCK_C=block_c,
-            num_warps=4)
+    plan = evonorm_plan(b, s, c, x.element_size(), math.gcd(x.data_ptr(), 16))
+    lib = _library()
+    part = torch.empty(b * plan.blocks * g * 3 + b * g, dtype=torch.float32,
+                       device=x.device)
+    y = torch.empty_like(x)
+    # the library switches to x's device for the launches; a deep level's
+    # call costs the host more than the card, so the stream is read raw
+    dev = x.device.index
+    rc = lib.brats_evonorm_s0(
+        x.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(), part.data_ptr(),
+        _tickets(x.device).data_ptr(), b, s, c, g, _DTYPES[x.dtype], plan.vec,
+        plan.blocks, plan.apply_blocks, eps, dev, torch._C._cuda_getCurrentRawStream(dev))
+    if rc != 0:
+        raise RuntimeError(f"evonorm_s0 launch failed: "
+                           f"{lib.brats_evonorm_error_string(rc).decode()}")
     launches += 1
     return y
 
 
 class EvoNormS0Function(torch.autograd.Function):
     """Trainable :func:`evonorm_s0` (``evonorm_kernel.py:118-138``): the
-    forward is the wrapper (the Triton kernels on a card, the plain version
+    forward is the wrapper (the CUDA kernels on a card, the plain version
     on the CPU), the backward autograd of :func:`evonorm_s0_plain`
     recomputed from the saved (x, γ, β). The backward launches no
     hand-written kernel."""

@@ -6,11 +6,13 @@
 Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. build the hand-written kernels from the sources in this checkout (the
-   CUDA conv and EDT envelope with nvcc, both at once, the Triton EvoNorm
-   by its first launch);
+   CUDA conv, EvoNorm and EDT envelope, one nvcc each, all at once), and
+   print each library's build time;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the served case gives it, and time kernel, plain version and,
-   where one exists, the one PyTorch call computing the same function;
+   where one exists, the one PyTorch call computing the same function,
+   with each shape's launch plan (the conv's grid and split-K count,
+   EvoNorm's blocks and channel vector);
 3. hold the width-48 model on the card (kernels) against the same model on
    the CPU (plain versions), fp32;
 4. the main path: the inference CLI (``--on test --cleaning_areas
@@ -46,7 +48,6 @@ from __future__ import annotations
 
 import json
 import math
-import os
 import shutil
 import subprocess
 import sys
@@ -114,7 +115,7 @@ def check_conv(level_shape, dev) -> dict:
     on a 40³ block (fp32)."""
     import torch
     import torch.nn.functional as F
-    from brats21_tpu_torch.ops.kernels.conv3d import conv3x3x3, conv3x3x3_plain
+    from brats21_tpu_torch.ops.kernels.conv3d import conv3x3x3, conv3x3x3_plain, conv_plan
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows, total = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                            ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0)
@@ -143,7 +144,9 @@ def check_conv(level_shape, dev) -> dict:
             x_cl = x.permute(0, 4, 1, 2, 3)
             w_oi = wt.permute(4, 3, 0, 1, 2).contiguous()
             b_bf = b.to(dtype)
-            row = dict(shape=[1, d, h, w, cin, cout], count=count, max_abs_err=err,
+            plan = conv_plan(1, d, h, w, cin, cout)
+            grid = [plan.bricks, plan.n_tiles, plan.splits]
+            row = dict(shape=[1, d, h, w, cin, cout], count=count, grid=grid, max_abs_err=err,
                        tolerance=tol, max_abs_err_fp32_40cubed=err32,
                        ms=time_ms(lambda: conv3x3x3(x, wt, b)),
                        plain_ms=time_ms(lambda: conv3x3x3_plain(x, wt, b)),
@@ -155,9 +158,11 @@ def check_conv(level_shape, dev) -> dict:
             total["ops_ms"] += count * ops / PEAK_BF16 * 1e3
             total["bytes_ms"] += count * nbytes / PEAK_BYTES * 1e3
             total["max_abs_err"] = max(total["max_abs_err"], err)
-            log(f"conv3x3x3 {cin}->{cout} at {d}x{h}x{w}: err {err:.3g} (tol {tol:.3g}) "
-                f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
-                f"cuDNN {row['library_ms']:.3f} ms, bound {b_ms:.3f} ms")
+            log(f"conv3x3x3 {cin}->{cout} at {d}x{h}x{w}: grid {plan.bricks} bricks x "
+                f"{plan.n_tiles} N tiles of {plan.bn} x split-K {plan.splits}; err {err:.3g} "
+                f"(tol {tol:.3g}) kernel {row['ms']:.4f} ms, cuDNN {row['library_ms']:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({100 * b_ms / row['ms']:.1f} %), "
+                f"plain {row['plain_ms']:.4f} ms")
             del x, wt, y, ref, x_cl, w_oi
     return dict(rows=rows, **total)
 
@@ -166,7 +171,7 @@ def check_evonorm(level_shape, dev) -> dict:
     """evonorm_s0 vs its plain version at the main path's shapes (bf16) and
     on a 40³ block (fp32)."""
     import torch
-    from brats21_tpu_torch.ops.kernels.evonorm import evonorm_s0, evonorm_s0_plain
+    from brats21_tpu_torch.ops.kernels.evonorm import evonorm_plan, evonorm_s0, evonorm_s0_plain
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     rows, total = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0,
                            bytes_ms=0.0, max_abs_err=0.0)
@@ -198,7 +203,10 @@ def check_evonorm(level_shape, dev) -> dict:
                 continue
             m = d * h * w
             b_ms, _ = bound(EVONORM_OPS * m * c, PEAK_FP32, 4.0 * m * c + 8.0 * c)
-            row = dict(shape=[1, d, h, w, c], count=count, max_abs_err=err,
+            plan = evonorm_plan(1, m, c, x.element_size())
+            row = dict(shape=[1, d, h, w, c], count=count,
+                       blocks=dict(stats=plan.blocks, apply=plan.apply_blocks),
+                       channels_per_thread=plan.vec, max_abs_err=err,
                        tolerance=tol, max_abs_err_fp32_40cubed=err32,
                        ms=time_ms(lambda: evonorm_s0(x, gamma, beta)),
                        plain_ms=time_ms(lambda: evonorm_s0_plain(x, gamma, beta)),
@@ -209,9 +217,11 @@ def check_evonorm(level_shape, dev) -> dict:
             total["ops_ms"] += count * EVONORM_OPS * m * c / PEAK_FP32 * 1e3
             total["bytes_ms"] += count * (4.0 * m * c + 8.0 * c) / PEAK_BYTES * 1e3
             total["max_abs_err"] = max(total["max_abs_err"], err)
-            log(f"evonorm_s0 C={c} at {d}x{h}x{w}: err {err:.3g} "
-                f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
-                f"bound {b_ms:.3f} ms")
+            log(f"evonorm_s0 C={c} at {d}x{h}x{w}: grid {plan.blocks} stats / "
+                f"{plan.apply_blocks} apply blocks, {plan.vec} channels a thread; "
+                f"err {err:.3g} kernel {row['ms']:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({100 * b_ms / row['ms']:.1f} %), "
+                f"plain {row['plain_ms']:.4f} ms")
             del x, y, ref, diff
     return dict(rows=rows, **total)
 
@@ -611,28 +621,37 @@ def main() -> int:
     work = kernels.BUILD_DIR / "smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    os.environ.setdefault("TRITON_CACHE_DIR", str(kernels.BUILD_DIR / "triton"))
 
-    # 1. build: one nvcc per CUDA source, all in the background, while
-    # Triton compiles and the case is made
+    # 1. build: one nvcc per CUDA source, all started together, while the
+    # case is made
     t0 = time.time()
-    builds = [kernels.start_build(src) for src in ("conv3x3x3.cu", "edt_envelope.cu")]
+    sources = ("conv3x3x3.cu", "evonorm_s0.cu", "edt_envelope.cu")
+    builds = [kernels.start_build(src) for src in sources]
+
+    def finish(build):
+        log_text = kernels.finish_build(build)
+        return log_text, time.time() - t0
+
+    with ThreadPoolExecutor(len(builds)) as pool:
+        waits = [pool.submit(finish, build) for build in builds]
+        data = work / "data"
+        generate_synthetic_dataset(str(data), num_cases=1, shape=CASE_SHAPE, seed=SEED,
+                                   with_seg=False)
+        for src, wait in zip(sources, waits):
+            log_text, seconds = wait.result()
+            log(f"nvcc {src}: built in {seconds:.1f}s" if log_text else
+                f"nvcc {src}: already built")
+            for line in log_text.splitlines():
+                if "registers" in line or "spill" in line or "error" in line:
+                    log(f"ptxas: {line.strip()}")
     from brats21_tpu_torch.ops.kernels.conv3d import conv3x3x3
     from brats21_tpu_torch.ops.kernels.edt import envelope
     from brats21_tpu_torch.ops.kernels.evonorm import evonorm_s0
-    for c in sorted({c for _, c, _ in EVONORM_CALLS}):
-        evonorm_s0(torch.ones((1, 2, 2, 2, c), device=dev),
-                   torch.ones(c, device=dev), torch.zeros(c, device=dev))
-    data = work / "data"
-    generate_synthetic_dataset(str(data), num_cases=1, shape=CASE_SHAPE, seed=SEED,
-                               with_seg=False)
-    for build in builds:
-        for line in kernels.finish_build(build).splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"ptxas: {line.strip()}")
     conv3x3x3(torch.ones((1, 2, 2, 2, 8), device=dev, dtype=torch.bfloat16),
               torch.ones((3, 3, 3, 8, 8), device=dev, dtype=torch.bfloat16),
               torch.zeros(8, device=dev))
+    evonorm_s0(torch.ones((1, 2, 2, 2, 8), device=dev), torch.ones(8, device=dev),
+               torch.zeros(8, device=dev))
     envelope(torch.zeros((2, 8), device=dev))
     torch.cuda.synchronize()
     log(f"phase 1 build: {time.time() - t0:.1f}s")
@@ -755,7 +774,7 @@ def main() -> int:
              "brats21_tpu/ops/pallas/conv3d_kernel.py:86",
              "bf16 1e-2*max|ref|, fp32 1e-4*max|ref| (fp32 reference, TF32 off)", conv,
              conv_train, "served forward"),
-            ("evonorm_s0", "triton", "brats21_tpu_torch/ops/kernels/evonorm.py",
+            ("evonorm_s0", "cuda", "brats21_tpu_torch/csrc/evonorm_s0.cu",
              "brats21_tpu/ops/pallas/evonorm_kernel.py:55",
              "bf16 2**-8*|ref| elementwise, fp32 1e-5 abs", evo, evo_train,
              "served forward"),

@@ -1,4 +1,4 @@
-"""The port's hand-written kernels on a card: each CUDA/Triton kernel held
+"""The port's hand-written kernels on a card: each CUDA kernel held
 against its plain PyTorch version on the same CUDA tensors, at ragged
 shapes the main path's level sizes do not reach (odd H/W, C_in = 4, C_out
 not a multiple of the tile; EDT lines of odd length, longer than a block,
@@ -27,9 +27,16 @@ pytestmark = pytest.mark.cuda
 
 CONV_CASES = [((1, 6, 11, 7, 5), 9), ((2, 5, 16, 8, 4), 6), ((1, 4, 13, 17, 3), 4),
               ((1, 9, 10, 11, 48), 48), ((1, 8, 8, 8, 4), 48), ((1, 7, 9, 5, 16), 24),
-              ((1, 6, 6, 6, 384), 384), ((1, 7, 9, 5, 96), 96), ((1, 5, 6, 7, 8), 136)]
+              ((1, 6, 6, 6, 384), 384), ((1, 7, 9, 5, 96), 96), ((1, 5, 6, 7, 8), 136),
+              # H and W under 8 and not multiples of it; D = 1; the 192 N tile;
+              # B = 2 at 96; the split-K level of the 128³ patch (16³×384)
+              ((1, 3, 5, 3, 32), 48), ((1, 1, 12, 10, 48), 48), ((1, 4, 9, 10, 192), 192),
+              ((2, 3, 9, 17, 96), 96), ((1, 16, 16, 16, 384), 384)]
 EVO_CASES = [(1, 5, 6, 7, 8), (2, 4, 4, 4, 24), (1, 10, 10, 10, 384), (2, 9, 9, 9, 96),
-             (1, 33, 31, 29, 48)]
+             (1, 33, 31, 29, 48),
+             # 3 channels a group at a ragged row count; C = 48 over 10**6 rows;
+             # three samples of 1001 rows
+             (1, 7, 5, 3, 24), (1, 104, 100, 100, 48), (3, 7, 11, 13, 8)]
 
 
 @pytest.fixture
@@ -83,6 +90,25 @@ def test_evonorm_kernel_matches_plain(dev, shape, dtype):
     else:
         ref = evonorm_s0_plain(x.float(), gamma, beta)
         assert bool((diff <= 2.0 ** -8 * ref.abs() + 1e-6).all())
+
+
+@pytest.mark.parametrize("tap", [(1, 1, 1), (0, 0, 0), (2, 1, 0), (0, 2, 2)])
+def test_conv_bf16_moves_each_voxel_and_channel_exactly(dev, tap):
+    """Weights that copy one tap: out[..., n] = x[voxel + tap - 1, perm(n)]
+    with the zero halo, for distinct values at every voxel and channel. The
+    sum has one nonzero term, so the bf16 kernel must equal it bit for bit:
+    a swapped descriptor stride (rows for channels), a wrong tap window or a
+    misplaced brick shows at once."""
+    d, h, w, c_in, c_out = 5, 11, 13, 32, 48
+    gen = torch.Generator(device=dev).manual_seed(sum(tap))
+    x = torch.randn((2, d, h, w, c_in), generator=gen, device=dev).to(torch.bfloat16)
+    perm = (torch.arange(c_out, device=dev) * 7) % c_in
+    wt = torch.zeros((3, 3, 3, c_in, c_out), device=dev, dtype=torch.bfloat16)
+    wt[tap[0], tap[1], tap[2], perm, torch.arange(c_out, device=dev)] = 1
+    y = conv3x3x3(x, wt, torch.zeros(c_out, device=dev))
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+    want = xp[:, tap[0]:tap[0] + d, tap[1]:tap[1] + h, tap[2]:tap[2] + w][..., perm]
+    assert torch.equal(y, want)
 
 
 def test_wrappers_raise_rather_than_fall_back(dev):

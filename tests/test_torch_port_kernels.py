@@ -1,6 +1,6 @@
 """The port's kernel modules on the CPU: each plain PyTorch version held
 against the JAX package's XLA reference and its Pallas kernel in interpret
-mode, on the same numpy inputs. The CUDA/Triton kernels themselves run only
+mode, on the same numpy inputs. The CUDA kernels themselves run only
 on a card (tests/test_torch_port_cuda.py, chip_smoke.py)."""
 
 import numpy as np
