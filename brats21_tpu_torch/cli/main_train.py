@@ -110,7 +110,7 @@ def main(argv=None) -> Dict[str, float]:
                        "(utils/reporting.py); the meters go to the log only")
 
     train_files, _ = create_train_val_records(cfg)
-    loader = make_train_loader(cfg, train_files)
+    loader = make_train_loader(cfg, train_files, device)
     if loader is None:
         raise ValueError(f"no training case found in {cfg.train_data_path}")
     steps_per_epoch = max(len(loader), 1)

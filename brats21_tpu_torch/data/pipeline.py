@@ -182,15 +182,22 @@ class TrainLoader:
     seeds (the JAX package's TrainLoader, replacing the reference's
     set_determinism, definer.py:507-508): the epoch's order and each case's
     augmentation seed come from ``default_rng((seed, epoch))``. The last
-    batch may be short, as the reference DataLoader's (definer.py:521)."""
+    batch may be short, as the reference DataLoader's (definer.py:521).
+    With ``compute_dm`` each sample carries the boundary distance map,
+    computed on ``device`` (which it then needs) by the worker threads."""
 
     def __init__(self, dataset: BraTSDataset, batch_size: int,
-                 patch_size: Sequence[int], seed: int = 123, num_workers: int = 4):
+                 patch_size: Sequence[int], seed: int = 123, num_workers: int = 4,
+                 compute_dm: bool = False, device: Any = None):
+        if compute_dm and device is None:
+            raise ValueError("compute_dm needs a device for the EDT")
         self.dataset = dataset
         self.batch_size = batch_size
         self.patch_size = list(patch_size)
         self.seed = seed
         self.num_workers = num_workers
+        self.compute_dm = compute_dm
+        self.device = device
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -212,7 +219,8 @@ class TrainLoader:
             return _collate([augment_train_sample(
                 ds[int(idx)], np.random.default_rng(int(aug_seeds[idx])),
                 self.patch_size, normalize=normalize,
-                remove_outliers=ds.remove_outliers) for idx in batches[bi]])
+                remove_outliers=ds.remove_outliers, compute_dm=self.compute_dm,
+                device=self.device) for idx in batches[bi]])
 
         return iter(_PrefetchIterator(make_batch, len(batches),
                                       num_workers=self.num_workers))
@@ -243,16 +251,19 @@ def create_train_val_records(cfg: Any) -> Tuple[List[Dict], List[Dict]]:
     return train_files, val_files
 
 
-def make_train_loader(cfg: Any, train_files: Sequence[Dict]) -> Optional[TrainLoader]:
+def make_train_loader(cfg: Any, train_files: Sequence[Dict],
+                      device: Any) -> Optional[TrainLoader]:
     """The train half of the JAX package's ``make_train_val_loaders``
-    (definer.py:438-527): raw loads, augmentations, normalization last."""
+    (definer.py:438-527): raw loads, augmentations, normalization last; the
+    boundary criteria's distance maps on ``device``."""
     if not train_files:
         return None
     ds = BraTSDataset(list(train_files), with_seg=True,
                       remove_outliers=cfg.remove_outliers,
                       already_preprocess=cfg.already_preprocess, normalize=False)
     return TrainLoader(ds, cfg.batch_size, cfg.patch_size, seed=cfg.seed,
-                       num_workers=cfg.num_workers)
+                       num_workers=cfg.num_workers,
+                       compute_dm="boundary" in cfg.criterion, device=device)
 
 
 def discover_test_records(cfg: Any) -> list:

@@ -2,15 +2,17 @@
 (X, Y, Z, C).
 
 ``brats21_tpu/data/transforms.py`` (label codecs, z-score, foreground crop,
-the pads and their inverses, the MONAI-semantics random augmentations),
-copied so the port has no import of the JAX package. The boundary losses'
-distance map comes with a later slice.
+the pads and their inverses, the MONAI-semantics random augmentations, the
+boundary losses' distance map), copied so the port has no import of the
+JAX package. The distance map runs the port's EDT (``ops/edt.py``) on the
+device it is given: the kernels on a card, their plain versions on the
+CPU.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 from scipy import ndimage
@@ -261,11 +263,11 @@ def rand_gaussian_smooth(rng: np.random.Generator, prob: float, img: np.ndarray,
 def preprocess_case(img: np.ndarray, seg: Optional[np.ndarray],
                     remove_outliers: bool = False, crop: bool = True,
                     compute_distance_map: bool = False,
-                    normalize: bool = True,
+                    normalize: bool = True, device: Any = None,
                     ) -> Dict[str, np.ndarray]:
     """The deterministic front half shared by all pipelines: label codec →
     foreground crop → z-score normalize (+ optional boundary-loss distance
-    map, definer.py:455-456). Returns a dict sample."""
+    map on ``device``, definer.py:455-456). Returns a dict sample."""
     sample: Dict[str, np.ndarray] = {}
     original_shape = np.asarray(img.shape[:3], np.int64)
     seg_mc = brats_labels_to_multichannel(seg) if seg is not None else None
@@ -284,35 +286,58 @@ def preprocess_case(img: np.ndarray, seg: Optional[np.ndarray],
     if seg_mc is not None:
         sample["seg"] = seg_mc
         if compute_distance_map:
-            sample["distance_map"] = compute_distance_map_fn(seg_mc)
+            sample["distance_map"] = compute_distance_map_fn(seg_mc, device)
     sample["foreground_start_coord"] = start
     sample["foreground_end_coord"] = end
     sample["original_shape"] = original_shape
     return sample
 
 
-def compute_distance_map_fn(seg_mc: np.ndarray) -> np.ndarray:
-    """Signed boundary-loss map (OneHotToDistd, definer.py:455-456). It
-    needs the exact EDT (``ops/edt.py`` and its envelope kernel), which the
-    port does not have yet."""
-    raise NotImplementedError(
-        "distance maps need the EDT envelope kernel, which comes with the "
-        "EDT slice of the port (ROADMAP A9/B3)")
+def compute_distance_map_fn(seg_mc: np.ndarray, device: Any) -> np.ndarray:
+    """Signed boundary-loss map (OneHotToDistd, definer.py:455-456) of a
+    channels-last one-hot seg, fp32, by the port's ``one_hot2dist`` on
+    ``device``, which has no default: ``None`` raises rather than run on
+    the host unasked. On a card it runs on a side stream of the calling
+    thread (a loader worker), synchronised before the map becomes numpy,
+    as the JAX package computes it on its default device."""
+    import torch
+    from ..ops.edt import one_hot2dist
+    if device is None:
+        raise ValueError("compute_distance_map_fn needs a device for the EDT")
+    device = torch.device(device)
+    # the masks cross as bytes, channels first: one EDT batch of C masks
+    seg = torch.from_numpy(np.ascontiguousarray(np.moveaxis(seg_mc != 0, -1, 0)))
+    if device.type != "cuda":
+        dm = one_hot2dist(seg.to(device))
+    else:
+        stream = torch.cuda.Stream(device)
+        with torch.cuda.stream(stream):
+            dm = one_hot2dist(seg.to(device)).cpu()
+        stream.synchronize()
+    return np.moveaxis(dm.numpy(), 0, -1)
 
 
 def augment_train_sample(sample: Dict[str, np.ndarray], rng: np.random.Generator,
                          patch_size: Sequence[int], normalize: bool = True,
-                         remove_outliers: bool = False) -> Dict[str, np.ndarray]:
+                         remove_outliers: bool = False, compute_dm: bool = False,
+                         device: Any = None) -> Dict[str, np.ndarray]:
     """The random back half of the train pipeline (definer.py:452-468):
-    SpatialPad → RandSpatialCrop → RandRotate90(p .7, axes 0, 2) →
-    RandFlip(p .7) → intensity augmentations → DivisiblePad(8), then, with
-    ``normalize``, the z-score on the augmented raw intensities, last, as
-    the reference does."""
+    SpatialPad → (with ``compute_dm``, the boundary distance map of the
+    padded seg, on ``device``) → RandSpatialCrop → RandRotate90(p .7, axes
+    0, 2) → RandFlip(p .7), the map riding with the seg → intensity
+    augmentations → DivisiblePad(8), then, with ``normalize``, the z-score
+    on the augmented raw intensities, last, as the reference does."""
     keys = [k for k in ("img", "seg") if k in sample]
     arrays = [sample[k] for k in keys]
     patch = list(patch_size)
     if any(p > 0 for p in patch):
         arrays = [spatial_pad(a, patch) for a in arrays]
+    if compute_dm:
+        # after SpatialPadd (definer.py:452-456), so the pad margins carry
+        # true distances
+        keys.append("distance_map")
+        arrays.append(compute_distance_map_fn(arrays[keys.index("seg")], device))
+    if any(p > 0 for p in patch):
         arrays = list(rand_spatial_crop(rng, patch, *arrays))
     arrays = list(rand_rotate90(rng, 0.7, (0, 2), *arrays))
     arrays = list(rand_flip(rng, 0.7, (0, 1, 2), *arrays))

@@ -3,8 +3,8 @@ post-process → NIfTI.
 
 ``Engine.train_epoch`` ports ``brats21_tpu/learning/engine.py:256-348``:
 each batch crosses to the card as the JAX package's wire has it (fp16
-images, uint8 targets, from pinned memory without blocking) and is cast
-there; step i−1's metrics are read only after step i is enqueued, so the
+images, uint8 targets, fp32 distance maps for the boundary criteria, from
+pinned memory without blocking) and is cast there; step i−1's metrics are read only after step i is enqueued, so the
 card never waits on the host's read.
 
 ``Engine.evaluate`` ports the serial branch of ``Engine.evaluate``
@@ -97,12 +97,17 @@ class Engine:
         wire = np.float32 if cfg.no_amp else np.float16
         t0 = time.time()
         for i, batch in enumerate(loader):
-            img = self.to_device(batch["img"].astype(wire))
-            target = self.to_device(batch["seg"].astype(np.uint8)).float()
-            data_time.update(time.time() - t0)
             # [B, X, Y, Z, C] → NCDHW views in channels_last_3d memory
-            metrics = step(state, img.permute(0, 4, 1, 2, 3),
-                           target.permute(0, 4, 1, 2, 3))
+            img = self.to_device(batch["img"].astype(wire)).permute(0, 4, 1, 2, 3)
+            target: Any = self.to_device(
+                batch["seg"].astype(np.uint8)).float().permute(0, 4, 1, 2, 3)
+            if "boundary" in cfg.criterion:
+                # the boundary criteria's (seg, distance_map) pair
+                # (engine.py:326-327)
+                target = (target, self.to_device(
+                    batch["distance_map"]).permute(0, 4, 1, 2, 3))
+            data_time.update(time.time() - t0)
+            metrics = step(state, img, target)
             if pending is not None:
                 collect(pending)          # step i is already enqueued
             pending = (metrics, batch["img"].shape[0], i)

@@ -5,15 +5,16 @@ the kwargs definer.py:177-288 selects): pure functions of logits
 ``[B, C, D, H, W]`` and multi-channel binary targets (WT/TC/ET) of the same
 shape. The Hausdorff losses take their distance maps from the on-device EDT
 (``ops/edt.py``), detached, as the JAX package's ``stop_gradient`` and the
-reference's numpy maps are. ``boundary`` and ``dice_boundary`` need
-distance maps from the data loader (``compute_distance_map_fn``), which
-come with a later slice: selecting them raises ``NotImplementedError``.
+reference's numpy maps are; under deep supervision (:class:`HDCriterion`)
+the target's maps and every head's come from one EDT batch. ``boundary``
+and ``dice_boundary`` take a ``(seg, distance_map)`` target, the map made
+by the data loader (``data/transforms.py:compute_distance_map_fn``).
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -155,10 +156,11 @@ def dice_focal_loss(logits: torch.Tensor, target: torch.Tensor, *,
             + lambda_focal * focal_loss(logits, target, gamma=gamma))
 
 
-def _probs2one_hot(probs: torch.Tensor) -> torch.Tensor:
-    """argmax over channels → one-hot, NCDHW (reference losses.py:43-56)."""
-    cls = torch.argmax(probs, dim=1)
-    return F.one_hot(cls, probs.shape[1]).movedim(-1, 1).float()
+def _select(x: torch.Tensor, idc: Optional[Sequence[int]]) -> torch.Tensor:
+    """``x[:, idc]``, or ``x`` itself when ``idc`` is every channel in order."""
+    if idc is None or list(idc) == list(range(x.shape[1])):
+        return x
+    return x[:, list(idc)]
 
 
 def _dist_maps(seg: torch.Tensor) -> torch.Tensor:
@@ -168,25 +170,45 @@ def _dist_maps(seg: torch.Tensor) -> torch.Tensor:
     return one_hot2hd_dist(flat).reshape(seg.shape)
 
 
+def _pred_one_hot(logits: torch.Tensor, idc: Optional[Sequence[int]],
+                  sigmoid: bool, softmax: bool) -> torch.Tensor:
+    """The prediction's one-hot for its HD map, as bool masks: the argmax
+    over all channels of the activated logits (the first of equal maxima,
+    reference losses.py:43-56), taken before the ``idc`` selection
+    (losses.py:158-159)."""
+    probs = _activate(logits.float(), sigmoid, softmax)
+    cls = torch.argmax(probs, dim=1, keepdim=True)
+    channels = torch.arange(probs.shape[1], device=probs.device)
+    return _select(cls == channels.view((1, -1) + (1,) * (probs.dim() - 2)), idc)
+
+
+def hd_dist_maps(target: torch.Tensor, pred_one_hots: Sequence[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The target's HD maps and each prediction one-hot's, all
+    ``[B, C, *spatial]`` of one shape, from one EDT batch (three envelope
+    launches)."""
+    maps = _dist_maps(torch.cat([target.bool()] + list(pred_one_hots)))
+    maps = list(maps.split(target.shape[0]))
+    return maps[0], maps[1:]
+
+
 def hausdorff_loss(logits: torch.Tensor, target: torch.Tensor, *,
                    idc: Optional[Sequence[int]] = None, alpha: float = 2.0,
                    sigmoid: bool = True, softmax: bool = False,
-                   reduction: str = "mean") -> torch.Tensor:
+                   reduction: str = "mean",
+                   maps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> torch.Tensor:
     """HD loss (reference losses.py:98-179): (p − t)² weighted by
-    tdm^α + pdm^α, the maps from the on-device EDT, detached. The
-    prediction's one-hot is the argmax over all channels, taken before the
-    ``idc`` selection (losses.py:158-159)."""
-    probs_full = _activate(logits.float(), sigmoid, softmax)
-    tgt = target.float()
-    with torch.no_grad():
-        pred_oh = _probs2one_hot(probs_full)
-    probs = probs_full
-    if idc is not None:
-        idc = list(idc)
-        probs, tgt, pred_oh = probs_full[:, idc], tgt[:, idc], pred_oh[:, idc]
-    with torch.no_grad():
-        tdm = _dist_maps(tgt)
-        pdm = _dist_maps(pred_oh)
+    tdm^α + pdm^α, the maps from the on-device EDT, detached, or given as
+    ``maps = (tdm, pdm)`` (:func:`hd_dist_maps`, after the ``idc``
+    selection)."""
+    probs = _select(_activate(logits.float(), sigmoid, softmax), idc)
+    tgt = _select(target.float(), idc)
+    if maps is None:
+        with torch.no_grad():
+            tdm, (pdm,) = hd_dist_maps(tgt, [_pred_one_hot(logits, idc, sigmoid, softmax)])
+    else:
+        tdm, pdm = maps
     delta = (probs - tgt) ** 2
     dtm = tdm ** alpha + pdm ** alpha
     return _reduce(delta * dtm, reduction)
@@ -195,15 +217,80 @@ def hausdorff_loss(logits: torch.Tensor, target: torch.Tensor, *,
 def dice_hd_loss(logits: torch.Tensor, target: torch.Tensor, *,
                  idc_hd: Optional[Sequence[int]] = None, alpha_hd: float = 2.0,
                  hybrid: bool = False, weight_hd: float = 0.5,
-                 weight_dice: float = 0.5, **dice_kwargs: Any) -> torch.Tensor:
+                 weight_dice: float = 0.5,
+                 maps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 **dice_kwargs: Any) -> torch.Tensor:
     """Reference DiceHDLoss (losses.py:182-293) with definer kwargs (:254-266)."""
     d = dice_loss(logits, target, **dice_kwargs)
     h = hausdorff_loss(logits, target, idc=idc_hd, alpha=alpha_hd,
                        sigmoid=dice_kwargs.get("sigmoid", True),
-                       softmax=dice_kwargs.get("softmax", False))
+                       softmax=dice_kwargs.get("softmax", False), maps=maps)
     if hybrid:
         return weight_dice * d + weight_hd * h
     return d + h
+
+
+class HDCriterion:
+    """``hd`` / ``dice_hd`` as ``criterion(logits, target)``, plus
+    :meth:`per_head` for deep supervision: the target's maps once and every
+    head's prediction maps in the same EDT batch, where head by head the
+    target's maps would be recomputed for each head. The losses are those
+    of the head-by-head calls, bit for bit."""
+
+    def __init__(self, loss: LossFn, **kwargs: Any):
+        self.loss = partial(loss, **kwargs)
+        # what the maps depend on, under the names hd and dice_hd take
+        self.idc = kwargs.get("idc", kwargs.get("idc_hd"))
+        self.sigmoid = kwargs.get("sigmoid", True)
+        self.softmax = kwargs.get("softmax", False)
+
+    def __call__(self, logits: torch.Tensor, target: torch.Tensor,
+                 maps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                 ) -> torch.Tensor:
+        return self.loss(logits, target, maps=maps)
+
+    @torch.no_grad()
+    def maps(self, heads: Sequence[torch.Tensor], target: torch.Tensor
+             ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The target's HD maps and each head's, from one EDT batch."""
+        return hd_dist_maps(_select(target, self.idc), [
+            _pred_one_hot(h, self.idc, self.sigmoid, self.softmax) for h in heads])
+
+    def per_head(self, heads: Sequence[torch.Tensor], target: torch.Tensor
+                 ) -> List[torch.Tensor]:
+        tdm, pdms = self.maps(heads, target)
+        return [self(h, target, maps=(tdm, pdm)) for h, pdm in zip(heads, pdms)]
+
+
+def boundary_loss(logits: torch.Tensor, dist_maps: Any, *,
+                  idc: Optional[Sequence[int]] = None, sigmoid: bool = True,
+                  softmax: bool = False, reduction: str = "mean") -> torch.Tensor:
+    """Surface/Boundary loss (reference losses.py:296-358): mean of
+    probs · precomputed signed distance maps (NCDHW). A (seg, dist_map)
+    pair is unwrapped to the map (reference :315-317)."""
+    if isinstance(dist_maps, (tuple, list)):
+        dist_maps = dist_maps[1]
+    probs = _activate(logits.float(), sigmoid, softmax)
+    dmaps = dist_maps.float()
+    if idc is not None:
+        idc = list(idc)
+        probs, dmaps = probs[:, idc], dmaps[:, idc]
+    return _reduce(probs * dmaps, reduction)
+
+
+def dice_boundary_loss(logits: torch.Tensor,
+                       target_and_dist: Tuple[torch.Tensor, torch.Tensor], *,
+                       idc_boundary: Optional[Sequence[int]] = None,
+                       lambda_dice: float = 1.0, lambda_boundary: float = 1.0,
+                       **dice_kwargs: Any) -> torch.Tensor:
+    """Reference DiceBoundaryLoss (losses.py:361-467): the target is a
+    (seg, distance_map) pair."""
+    target, dist_maps = target_and_dist
+    d = dice_loss(logits, target, **dice_kwargs)
+    b = boundary_loss(logits, dist_maps, idc=idc_boundary,
+                      sigmoid=dice_kwargs.get("sigmoid", True),
+                      softmax=dice_kwargs.get("softmax", False))
+    return lambda_dice * d + lambda_boundary * b
 
 
 def make_criterion(cfg: Any) -> LossFn:
@@ -230,30 +317,37 @@ def make_criterion(cfg: Any) -> LossFn:
     if name == "tversky":
         return partial(tversky_loss, **base, alpha=0.5, beta=0.5)
     if name == "hd":
-        return partial(hausdorff_loss, idc=idc, alpha=2.0, sigmoid=True,
-                       softmax=False, reduction="mean")
+        return HDCriterion(hausdorff_loss, idc=idc, alpha=2.0,
+                           sigmoid=True, softmax=False, reduction="mean")
     if name == "dice_hd":
         # reference DiceHDLoss defaults batch=False (losses.py:212)
-        return partial(dice_hd_loss, idc_hd=idc, alpha_hd=2.0, hybrid=False,
-                       weight_hd=0.5, weight_dice=0.5, **base, squared_pred=True,
-                       batch=False)
-    if name in ("boundary", "dice_boundary"):
-        raise NotImplementedError(
-            f"--criterion {name} needs distance maps from the data loader "
-            "(compute_distance_map_fn), which come with a later slice of the "
-            "port (ROADMAP A9)")
+        return HDCriterion(dice_hd_loss, idc_hd=idc, alpha_hd=2.0,
+                           hybrid=False, weight_hd=0.5, weight_dice=0.5, **base,
+                           squared_pred=True, batch=False)
+    if name == "boundary":
+        return partial(boundary_loss, idc=idc, sigmoid=True, softmax=False,
+                       reduction="mean")
+    if name == "dice_boundary":
+        # reference DiceBoundaryLoss defaults batch=False (losses.py:387)
+        return partial(dice_boundary_loss, idc_boundary=idc, **base,
+                       squared_pred=True, batch=False)
     raise NameError("Not Supported Criterion")
 
 
-def deep_supervision_loss(criterion: LossFn, outputs: Any,
-                          target: torch.Tensor) -> torch.Tensor:
+def deep_supervision_loss(criterion: LossFn, outputs: Any, target: Any) -> torch.Tensor:
     """Mean of the criterion over the main and deep-supervision heads
     (reference engine.py:312-333): ``outputs`` is logits or
-    ``(logits, [deep heads])``."""
+    ``(logits, [deep heads])``; ``target`` is the seg or, for the boundary
+    criteria, the (seg, distance_map) pair, the same for every head. An
+    :class:`HDCriterion` takes all heads at once."""
     if isinstance(outputs, tuple) and len(outputs) == 2 \
             and isinstance(outputs[1], (list, tuple)):
         main, deeps = outputs
     else:
         main, deeps = outputs, []
-    losses = [criterion(main, target)] + [criterion(d, target) for d in deeps]
+    heads = [main] + list(deeps)
+    if isinstance(criterion, HDCriterion):
+        losses = criterion.per_head(heads, target)
+    else:
+        losses = [criterion(h, target) for h in heads]
     return torch.stack(losses).mean()

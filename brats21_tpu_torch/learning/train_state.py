@@ -11,7 +11,7 @@ activation dtype), losses, gradients and the optimizer fp32; no GradScaler.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -54,8 +54,9 @@ class TrainStep:
         self.use_amp = use_amp
         self.log_metrics = log_metrics
 
-    def forward_loss(self, state: TrainState, img: torch.Tensor, target: torch.Tensor):
-        """(loss, main-head logits) of one batch, NCDHW."""
+    def forward_loss(self, state: TrainState, img: torch.Tensor, target: Any):
+        """(loss, main-head logits) of one batch, NCDHW; ``target`` is the
+        seg or the boundary criteria's (seg, distance_map) pair."""
         x = img.to(torch.bfloat16 if self.use_amp else torch.float32)
         outputs = state.model(x)
         loss = deep_supervision_loss(self.criterion, outputs, target)
@@ -73,14 +74,15 @@ class TrainStep:
         return gnorm
 
     def __call__(self, state: TrainState, img: torch.Tensor,
-                 target: torch.Tensor) -> Dict[str, torch.Tensor]:
+                 target: Any) -> Dict[str, torch.Tensor]:
         state.model.train()
         loss, main = self.forward_loss(state, img, target)
         metrics = {"loss": loss.detach(), "grad_norm": self.backward_update(state, loss)}
         if self.log_metrics:
             with torch.no_grad():
                 pred = torch.sigmoid(main.float()) >= 0.5
-                metrics["dice"] = dice_metric(pred, target).mean(dim=0)
+                seg = target[0] if isinstance(target, tuple) else target
+                metrics["dice"] = dice_metric(pred, seg).mean(dim=0)
         return metrics
 
 

@@ -2,10 +2,11 @@
 
 Port of ``brats21_tpu/ops/edt.py``: the separable decomposition
 (Felzenszwalb & Huttenlocher) in which each axis applies the lower envelope
-``d[i] = min_j g[j] + (s·(i − j))²``, here the hand-written kernel of
-``ops/kernels/edt.py``. Masks come as a batch ``[N, *spatial]``: one
-envelope launch per spatial axis covers all N masks, where the JAX package
-vmaps over them.
+``d[i] = min_j g[j] + (s·(i − j))²``, here the hand-written kernels of
+``ops/kernels/edt.py``: the first axis reads the mask itself, the others
+the fp32 result. Masks come as a batch ``[N, *spatial]``: one envelope
+launch per spatial axis covers all N masks, where the JAX package vmaps
+over them.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from .kernels.edt import INF, envelope
+from .kernels.edt import envelope, envelope_mask
 
 
 def edt_sq(mask: torch.Tensor, sampling: Optional[Sequence[float]] = None
@@ -24,10 +25,8 @@ def edt_sq(mask: torch.Tensor, sampling: Optional[Sequence[float]] = None
     ``distance_transform_edt(mask)**2`` per mask), fp32."""
     spatial = mask.dim() - 1
     sampling = sampling or (1.0,) * spatial
-    # contiguous whatever the mask's strides (a permuted channels-last
-    # target gives a strided one): the kernel runs on contiguous tensors
-    f = torch.where(mask.bool(), INF, 0.0).to(torch.float32).contiguous()
-    for ax in range(spatial):
+    f = envelope_mask(mask.bool(), float(sampling[0]), 1)
+    for ax in range(1, spatial):
         f = envelope(f, float(sampling[ax]), ax + 1)
     return f
 
@@ -59,6 +58,6 @@ def one_hot2hd_dist(seg: torch.Tensor, sampling: Optional[Sequence[float]] = Non
                     ) -> torch.Tensor:
     """HD-loss distance map per mask of ``[N, *spatial]`` (reference
     losses.py:77-95): the EDT of the positive mask (distance to its nearest
-    non-positive voxel); zero for empty masks."""
-    pos = seg.bool()
-    return torch.where(_any_per_mask(pos), edt(pos, sampling), 0.0)
+    non-positive voxel), which is zero for an empty mask as the reference's
+    map is."""
+    return edt(seg.bool(), sampling)

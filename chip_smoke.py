@@ -22,10 +22,12 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    EvoNorms);
 5. the same case through the CLI with ``--tta`` (16 forwards);
 6. where one served case's time goes, stage by stage;
-7. the EDT envelope kernel against its plain version, bit for bit, on every
-   axis pass of ``edt_sq`` over the train step's masks (3×128³) and over a
-   240×240×155 mask with sampling (1, 1, 1.5), ``edt_sq`` against scipy on
-   the host, and the kernel's time beside its bound;
+7. the EDT envelope kernels (the mask pass, the general pass) against
+   their plain version, the scan, on every axis pass of ``edt_sq``: bit for
+   bit over the train step's masks (3×128³ and its one batch of 12×128³),
+   the full case's six masks (6×240×240×155) and hand-made edge lines;
+   within rtol 1e-6 over a 240×240×155 mask with sampling (1, 1, 1.5);
+   ``edt_sq`` against scipy on the host; each pass's time beside its bound;
 8. the trainable conv3x3x3 and EvoNorm-S0 (``autograd.Function``s) against
    autograd of their plain versions on the card, at the train step's
    level-1 and level-4 shapes, bf16 and fp32;
@@ -33,11 +35,15 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    patches, ``--criterion dice_hd --optimizer ranger --decay_type cosine
    --use_gc --remove_outliers``, one epoch over four synthetic 240×240×155
    cases; the counters are zeroed before each step's forward and read after
-   it and after its backward and optimizer step (14 / 21 / 18 launches
+   it and after its backward and optimizer step (14 / 21 / 3 launches
    forward, none backward); then the inference CLI serves the trained
    ``best_model.pth``;
-10. where one train step's time goes: forward, loss (of which EDT),
-    backward and optimizer, by CUDA events.
+10. where one train step's time goes: forward, loss (of which the EDT
+    maps), backward and optimizer, by CUDA events;
+11. the train CLI with ``--criterion dice_boundary`` over two of phase 9's
+    cases: the loader makes each case's distance map on the card (3 EDT
+    launches a case, every EDT launch of the run), the steps launch 14 / 21
+    / 0; a finite loss.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -75,7 +81,13 @@ PATCH = (128, 128, 128)         # the train step's patch (arguments.py:52-53)
 # beside it.
 EDT_ENVELOPE_OPS = 25
 EDT_SCAN_OPS = 4
-TRAIN_STEP_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=18)
+# launches per train step: the EDT maps of the target and the three heads
+# are one edt_sq batch (the mask pass and two general passes)
+TRAIN_STEP_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=3)
+# dice_boundary: no EDT in the step; the loader's one_hot2dist makes one
+# edt_sq batch (3 channels, negative and positive) a case
+BOUNDARY_STEP_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21)
+EDT_LAUNCHES_PER_LOADED_CASE = 3
 # per forward of EquiUnetASSPEvo w48: (level, C_in, C_out, count) of the 3³
 # convs and (level, C, count) of the EvoNorms; level l is the padded case
 # shape // 2**(l-1)
@@ -331,12 +343,32 @@ def stage_breakdown(model, data: Path, out: Path, dev) -> dict:
     return dict(stages_s=stages, forward_ms=forward_ms)
 
 
+def _edt_passes(mask, sampling):
+    """edt_sq's three passes over ``mask`` [N, *spatial]: (name, kernel,
+    plain, input, sampling, axis) each, the input of a pass being the
+    plain version's output of the pass before."""
+    from brats21_tpu_torch.ops.kernels.edt import (envelope, envelope_mask,
+                                                   envelope_mask_plain, envelope_plain)
+    passes, f = [], mask
+    for ax in range(3):
+        kernel, plain = ((envelope_mask, envelope_mask_plain) if ax == 0
+                         else (envelope, envelope_plain))
+        passes.append(("mask" if ax == 0 else "general", kernel, plain, f,
+                       sampling[ax], ax + 1))
+        f = plain(f, sampling[ax], ax + 1)
+    return passes
+
+
 def check_edt(dev) -> dict:
-    """The EDT envelope kernel against its plain version on the card, bit
-    for bit, on every axis pass of edt_sq: the train step's masks (B·C = 3
-    of 128³, random) and one 240×240×155 mask with sampling (1, 1, 1.5);
-    edt_sq against scipy on the host for one 128³ mask; the kernel and the
-    plain version timed per launch at the train step's shape."""
+    """The EDT envelope kernels (the mask pass and the general pass)
+    against their plain version, the O(n²) scan, on every pass of edt_sq:
+    bit for bit over the train step's masks (3×128³ and the step's one batch
+    of 12×128³), the full case's six masks (6×240×240×155) and hand-made
+    edge lines at unit sampling; within rtol 1e-6 over one 240×240×155
+    mask at sampling (1, 1, 1.5), where parabolas within an ulp may be
+    chosen otherwise. Each shape's pass is timed beside its byte bound, the
+    plain version and the old scan's bound; edt_sq against scipy on the
+    host."""
     import numpy as np
     import torch
     from scipy import ndimage
@@ -344,46 +376,69 @@ def check_edt(dev) -> dict:
     from brats21_tpu_torch.ops.kernels.edt import INF, envelope, envelope_plain
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     rows, max_err = [], 0.0
-    for shape, sampling in (((3, *PATCH), (1.0, 1.0, 1.0)),
-                            ((1, *CASE_SHAPE), (1.0, 1.0, 1.5))):
-        mask = torch.rand(shape, generator=gen, device=dev) > 0.5
-        f = torch.where(mask, INF, 0.0)
-        for ax in range(3):
-            got = envelope(f, sampling[ax], ax + 1)
-            want = envelope_plain(f, sampling[ax], ax + 1)
+    for shape, sampling, p_true in (((3, *PATCH), (1.0, 1.0, 1.0), 0.7),
+                                    ((12, *PATCH), (1.0, 1.0, 1.0), 0.7),
+                                    ((6, *CASE_SHAPE), (1.0, 1.0, 1.0), 0.9),
+                                    ((1, *CASE_SHAPE), (1.0, 1.0, 1.5), 0.9)):
+        mask = torch.rand(shape, generator=gen, device=dev) < p_true
+        exact = all(s == 1.0 for s in sampling)
+        for name, kernel, plain, x, s, ax in _edt_passes(mask, sampling):
+            got, want = kernel(x, s, ax), plain(x, s, ax)
             err = (got - want).abs().max().item()
-            if not torch.equal(got, want):
-                raise AssertionError(f"edt envelope {shape} axis {ax + 1}: not bit-equal "
-                                     f"to the plain version (max |err| {err:.3g})")
+            rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+            equal = torch.equal(got, want)
+            if (exact or name == "mask") and not equal:
+                raise AssertionError(f"edt {name} pass {shape} axis {ax}: not bit-equal to "
+                                     f"the plain version (max |err| {err:.3g})")
+            if not rel <= 1e-6:
+                raise AssertionError(f"edt {name} pass {shape} axis {ax} sampling {s}: "
+                                     f"max relative err {rel:.3g} > 1e-6")
             max_err = max(max_err, err)
-            if shape[0] == 3:
-                numel, n = f.numel(), shape[ax + 1]
-                b_ms, by = bound(EDT_ENVELOPE_OPS * numel, PEAK_FP32, 8.0 * numel)
-                scan_ms, _ = bound(EDT_SCAN_OPS * numel * n, PEAK_FP32, 8.0 * numel)
-                row = dict(shape=list(shape), axis=ax + 1, sampling=sampling[ax],
-                           ms=time_ms(lambda: envelope(f, sampling[ax], ax + 1)),
-                           plain_ms=time_ms(lambda: envelope_plain(f, sampling[ax], ax + 1),
-                                            iters=2),
-                           bound_ms=b_ms, bound_by=by, scan_bound_ms=scan_ms,
-                           max_abs_err=err)
-                rows.append(row)
-                log(f"edt envelope {shape} axis {ax + 1}: bit-equal; kernel "
-                    f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
-                    f"{b_ms:.4f} ms ({by}; O(n²) scan bound {scan_ms:.3f} ms)")
-            f = got
-        log(f"edt_sq {shape} sampling {sampling}: every pass bit-equal to the plain version")
+            numel, n = x.numel(), shape[ax]
+            in_bytes = x.element_size()
+            b_ms, by = bound(EDT_ENVELOPE_OPS * numel, PEAK_FP32, (in_bytes + 4.0) * numel)
+            scan_ms, _ = bound(EDT_SCAN_OPS * numel * n, PEAK_FP32, (in_bytes + 4.0) * numel)
+            ms = time_ms(lambda: kernel(x, s, ax))
+            plain_ms = time_ms(lambda: plain(x, s, ax), iters=2)
+            rows.append(dict(shape=list(shape), pass_=name, axis=ax, n=n, sampling=s,
+                             bit_equal=equal, max_abs_err=err, max_rel_err=rel, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                             scan_bound_ms=scan_ms))
+            log(f"edt {name} pass {tuple(shape)} axis {ax} (n={n}) sampling {s}: "
+                f"{'bit-equal' if equal else f'max rel err {rel:.3g} (tol rtol 1e-6)'}; "
+                f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({by}, {100 * b_ms / ms:.1f} %), "
+                f"plain {plain_ms:.3f} ms, O(n²) scan bound {scan_ms:.4f} ms")
+            del got, want
+        del mask
+        torch.cuda.empty_cache()
+    # hand-made edge lines: all-sentinel, a single zero, zeros at both ends
+    for n in (1, 2, 155, 240):
+        g = torch.full((5, n), INF, device=dev)
+        g[1, 0] = g[2, n // 2] = g[3, n - 1] = 0.0
+        g[4, 0] = g[4, n - 1] = 0.0
+        for x, ax in ((g, 1), (g.t().contiguous(), 0)):
+            if not torch.equal(envelope(x, 1.0, ax), envelope_plain(x, 1.0, ax)):
+                raise AssertionError(f"edt edge lines n={n} axis {ax}: not bit-equal")
+    log("edt edge lines (all-sentinel, one zero first/middle/last, zeros at both ends; "
+        "n = 1, 2, 155, 240, both axes): bit-equal")
     one = (torch.rand((1, *PATCH), generator=gen, device=dev) > 0.3)
     got = edt_sq(one)[0].cpu().numpy()
     want = ndimage.distance_transform_edt(one[0].cpu().numpy()) ** 2
     if not np.allclose(got, want, rtol=1e-6, atol=1e-3):
         raise AssertionError(f"edt_sq vs scipy: max |err| {np.abs(got - want).max():.3g}")
     log(f"edt_sq 128³ vs scipy: max |err| {np.abs(got - want).max():.3g}")
-    per_sq = {k: sum(r[k] for r in rows)
-              for k in ("ms", "plain_ms", "bound_ms", "scan_bound_ms")}
-    # a train step runs 6 edt_sq (target and prediction of 3 heads)
-    steps = TRAIN_STEP_LAUNCHES["edt_envelope"] // 3
-    return dict(rows=rows, max_abs_err=max_err, bound_by=rows[0]["bound_by"],
-                **{k: steps * v for k, v in per_sq.items()})
+    # the train step's one EDT batch: 12 masks of 128³, three passes
+    step_rows = [r for r in rows if r["shape"][0] == 12]
+    per_step = {k: sum(r[k] for r in step_rows)
+                for k in ("ms", "plain_ms", "bound_ms", "scan_bound_ms")}
+    case_rows = [r for r in rows if r["shape"][0] == 6]
+    log(f"edt per train step (12×128³, 3 launches): kernel {per_step['ms']:.4f} ms, bound "
+        f"{per_step['bound_ms']:.4f} ms; full case 6×240×240×155 edt_sq: kernel "
+        f"{sum(r['ms'] for r in case_rows):.4f} ms, bound "
+        f"{sum(r['bound_ms'] for r in case_rows):.4f} ms")
+    return dict(rows=rows, max_abs_err=max_err, bound_by=step_rows[0]["bound_by"],
+                full_case_ms=sum(r["ms"] for r in case_rows),
+                full_case_bound_ms=sum(r["bound_ms"] for r in case_rows), **per_step)
 
 
 def check_grads(dev) -> dict:
@@ -456,14 +511,18 @@ class StepProbe:
         from brats21_tpu_torch.ops.kernels import conv3d, edt, evonorm
         self.mods = dict(conv3x3x3=conv3d, evonorm_s0=evonorm, edt_envelope=edt)
         self.forward, self.backward, self.events, self.host_t = [], [], [], []
+        # launches made outside the steps' windows (the loader's threads)
+        self.carried = dict.fromkeys(self.mods, 0)
+        for m in self.mods.values():
+            self.take(m)
         self.cls = TrainStep
         self.orig = (TrainStep.forward_loss, TrainStep.backward_update)
         probe = self
 
         def forward_loss(step, state, img, target):
             probe.host_t.append(time.time())
-            for m in probe.mods.values():
-                m.launches = 0
+            for k, m in probe.mods.items():
+                probe.carried[k] += probe.take(m)
             start = torch.cuda.Event(enable_timing=True)
             start.record()
             out = probe.orig[0](step, state, img, target)
@@ -482,22 +541,36 @@ class StepProbe:
 
         TrainStep.forward_loss, TrainStep.backward_update = forward_loss, backward_update
 
+    @staticmethod
+    def take(mod) -> int:
+        """Read and zero a wrapper's count; the EDT's under its lock, since
+        the loader's threads launch it while a step runs."""
+        if hasattr(mod, "take_launches"):
+            return mod.take_launches()
+        taken, mod.launches = mod.launches, 0
+        return taken
+
     def close(self) -> None:
         self.cls.forward_loss, self.cls.backward_update = self.orig
 
     def step_ms(self) -> list:
         return [a.elapsed_time(b) for a, b in self.events]
 
+    def total_launches(self) -> dict:
+        """Every launch of the run: the steps' and those between them."""
+        return {k: self.carried[k] + m.launches for k, m in self.mods.items()}
 
-def run_training(data: Path, runs: Path, dev) -> dict:
+
+def run_training(data: Path, runs: Path, dev, criterion: str = "dice_hd") -> dict:
     """The train CLI on the card, probed step by step; returns launches per
-    step, step times, the CLI wall, the peak memory and the run directory."""
+    step and over the whole run, step times, the CLI wall, the peak memory
+    and the run directory."""
     import statistics
 
     import torch
     from brats21_tpu_torch.cli.main_train import main as train_main
     argv = ["--train_data_path", str(data), "--save_path", str(runs), "--device", "0",
-            "--model", "equiunet_assp_evo", "--width", "48", "--criterion", "dice_hd",
+            "--model", "equiunet_assp_evo", "--width", "48", "--criterion", criterion,
             "--optimizer", "ranger", "--decay_type", "cosine", "--learning_rate", "3e-4",
             "--use_gc", "--remove_outliers", "--fold", "None", "--epochs", "1",
             "--num_workers", "2"]
@@ -520,21 +593,22 @@ def run_training(data: Path, runs: Path, dev) -> dict:
                 step_ms_median_after_first=statistics.median(step_ms[1:]),
                 host_interval_ms=host_ms,
                 forward_launches=probe.forward, backward_launches=probe.backward,
+                run_launches=probe.total_launches(),
                 peak_bytes=torch.cuda.max_memory_allocated(dev), run_dir=str(run_dir))
 
 
-def train_step_breakdown(dev, iters: int = 3) -> dict:
+def train_step_breakdown(dev, iters: int = 9) -> dict:
     """Where one train step's time goes on one 128³ batch (w48, bf16,
     dice_hd, Ranger with GC): forward, loss (of which the EDT maps: the
-    six one_hot2hd_dist calls of the three heads), backward and optimizer,
-    each between CUDA events; the median over ``iters`` steps after a
-    warm-up step."""
+    target's and the three heads' in one batch, as the loss makes them),
+    backward and optimizer, each between CUDA events (which take in the
+    host's launch overhead); the median over ``iters`` steps after a warm-up
+    step, and under ``range`` the least and the most."""
     import statistics
     from types import SimpleNamespace
 
     import torch
-    from brats21_tpu_torch.learning.losses import (_dist_maps, _probs2one_hot,
-                                                   deep_supervision_loss, make_criterion)
+    from brats21_tpu_torch.learning.losses import deep_supervision_loss, make_criterion
     from brats21_tpu_torch.learning.optimizers import make_optimizer
     from brats21_tpu_torch.models import get_model
     cfg = SimpleNamespace(criterion="dice_hd", num_classes=3, optimizer="ranger",
@@ -567,17 +641,16 @@ def train_step_breakdown(dev, iters: int = 3) -> dict:
         with torch.no_grad():
             heads = [outputs[0]] + list(outputs[1])
             ev[5].record()
-            for h in heads:
-                _dist_maps(tgt)
-                _dist_maps(_probs2one_hot(torch.sigmoid(h.float())))
+            criterion.maps(heads, tgt)
             ev[6].record()
         torch.cuda.synchronize()
         if it:
             for k, (a, b) in zip(names, ((0, 1), (1, 2), (2, 3), (3, 4), (5, 6))):
                 times[k].append(ev[a].elapsed_time(ev[b]))
         del outputs, loss
+    times["step"] = [sum(t) for t in zip(*(times[k] for k in names[:4]))]
     out = {k: statistics.median(v) for k, v in times.items()}
-    out["step"] = out["forward"] + out["loss"] + out["backward"] + out["optimizer"]
+    out["range"] = {k: [min(v), max(v)] for k, v in times.items()}
     return out
 
 
@@ -744,6 +817,10 @@ def main() -> int:
         if fwd != TRAIN_STEP_LAUNCHES or any(bwd.values()):
             raise AssertionError(f"train step {i}: forward launches {fwd} (want "
                                  f"{TRAIN_STEP_LAUNCHES}), backward {bwd} (want none)")
+    if train["run_launches"]["edt_envelope"] != train["steps"] * TRAIN_STEP_LAUNCHES[
+            "edt_envelope"]:
+        raise AssertionError(f"EDT launches over the run {train['run_launches']}: "
+                             f"not {TRAIN_STEP_LAUNCHES['edt_envelope']} a step")
     if not math.isfinite(train["result"]["train_loss"]):
         raise AssertionError(f"train loss {train['result']['train_loss']}")
     run_dir = Path(train["run_dir"])
@@ -768,6 +845,41 @@ def main() -> int:
     step_split = train_step_breakdown(dev)
     log(f"phase 10 train step split (ms): {json.dumps(step_split)} in {time.time() - t0:.1f}s")
 
+    # 11. the boundary criterion through the train CLI: the loader makes
+    # each case's distance map on the card, the steps launch no EDT
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    boundary_data = work / "boundary_data"
+    boundary_data.mkdir()
+    cases = sorted(p for p in train_data.iterdir() if p.is_dir())[:2]
+    for case in cases:
+        (boundary_data / case.name).symlink_to(case, target_is_directory=True)
+    boundary = run_training(boundary_data, work / "runs_boundary", dev,
+                            criterion="dice_boundary")
+    if boundary["steps"] != len(cases):
+        raise AssertionError(f"dice_boundary ran {boundary['steps']} steps, not {len(cases)}")
+    for i, (fwd, bwd) in enumerate(zip(boundary["forward_launches"],
+                                       boundary["backward_launches"])):
+        if {k: fwd[k] for k in BOUNDARY_STEP_LAUNCHES} != BOUNDARY_STEP_LAUNCHES or any(
+                bwd[k] for k in BOUNDARY_STEP_LAUNCHES):
+            raise AssertionError(f"dice_boundary step {i}: forward launches {fwd}, backward "
+                                 f"{bwd} (want {BOUNDARY_STEP_LAUNCHES}, none backward)")
+    # every EDT launch of the run is the loader's: 3 a case
+    want_edt = EDT_LAUNCHES_PER_LOADED_CASE * len(cases)
+    if boundary["run_launches"]["edt_envelope"] != want_edt:
+        raise AssertionError(f"dice_boundary run: {boundary['run_launches']['edt_envelope']} "
+                             f"EDT launches, want {want_edt} (3 a loaded case, none a step)")
+    if not math.isfinite(boundary["result"]["train_loss"]):
+        raise AssertionError(f"dice_boundary train loss {boundary['result']['train_loss']}")
+    log(f"phase 11 dice_boundary: {boundary['steps']} steps, loss "
+        f"{boundary['result']['train_loss']:.4f}, steps "
+        f"{[round(t, 1) for t in boundary['step_ms']]} ms, host clock between step starts "
+        f"{[round(t, 1) for t in boundary['host_interval_ms']]} ms, CLI wall "
+        f"{boundary['wall_s']:.1f}s, peak {boundary['peak_bytes'] / 2**30:.2f} GiB; "
+        f"EDT launches {boundary['run_launches']['edt_envelope']} over the run (the loader's, "
+        f"{EDT_LAUNCHES_PER_LOADED_CASE} a case), per step {boundary['forward_launches'][0]} "
+        f"forward, {boundary['backward_launches'][0]} backward; in {time.time() - t0:.1f}s")
+
     kernel_rows = []
     for name, route, source, replaces, tolerance, res, res_train, ms_per in (
             ("conv3x3x3", "cuda", "brats21_tpu_torch/csrc/conv3x3x3.cu",
@@ -779,7 +891,8 @@ def main() -> int:
              "bf16 2**-8*|ref| elementwise, fp32 1e-5 abs", evo, evo_train,
              "served forward"),
             ("edt_envelope", "cuda", "brats21_tpu_torch/csrc/edt_envelope.cu",
-             "brats21_tpu/ops/pallas/edt_kernel.py:42", "bit-equal to the plain version",
+             "brats21_tpu/ops/pallas/edt_kernel.py:42",
+             "bit-equal to the plain version at unit sampling; rtol 1e-6 at (1, 1, 1.5)",
              edt_res, None, "train step")):
         row = dict(name=name, route=route, source=source, replaces=replaces,
                    launches=train_launches[name], launches_per="train step",
@@ -794,15 +907,20 @@ def main() -> int:
                    shapes=res["rows"])
         if "scan_bound_ms" in res:
             row["scan_bound_ms"] = res["scan_bound_ms"]
+            row["full_case_edt_sq"] = dict(ms=res["full_case_ms"],
+                                           bound_ms=res["full_case_bound_ms"])
+            row["launches_by_path"]["boundary_loader_case"] = EDT_LAUNCHES_PER_LOADED_CASE
         if res_train is not None:
             row["train_step_shapes"] = {k: res_train[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "rows") if k in res_train}
         kernel_rows.append(row)
-    train.pop("forward_launches")
-    train.pop("backward_launches")
+    for run in (train, boundary):
+        run.pop("forward_launches")
+        run.pop("backward_launches")
     summary = dict(card=card, padded_case=list(padded), main_path=main_run,
                    tta=tta_run, stages=breakdown, grads_max_abs_err=grads, train=train,
                    trained_served=served, train_step_split_ms=step_split,
+                   boundary=boundary,
                    total_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))
     shutil.rmtree(work, ignore_errors=True)

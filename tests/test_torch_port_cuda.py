@@ -2,8 +2,9 @@
 against its plain PyTorch version on the same CUDA tensors, at ragged
 shapes the main path's level sizes do not reach (odd H/W, C_in = 4, C_out
 not a multiple of the tile; EDT lines of odd length, longer than a block,
-on every axis), and the trainable conv / EvoNorm against autograd of their
-plain versions. Marked ``cuda``: without a card every test
+on every axis, and hand-made edge lines), the EDT mask pass, the batched
+HD loss and the loader's distance map, and the trainable conv / EvoNorm
+against autograd of their plain versions. Marked ``cuda``: without a card every test
 skips. On a machine with one, from the repository root:
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
@@ -19,7 +20,8 @@ from brats21_tpu_torch.ops.edt import edt_sq
 from brats21_tpu_torch.ops.kernels import conv3d, edt, evonorm
 from brats21_tpu_torch.ops.kernels.conv3d import (Conv3x3x3Function, conv3x3x3,
                                                   conv3x3x3_plain)
-from brats21_tpu_torch.ops.kernels.edt import INF, envelope, envelope_plain
+from brats21_tpu_torch.ops.kernels.edt import (INF, envelope, envelope_mask,
+                                               envelope_mask_plain, envelope_plain)
 from brats21_tpu_torch.ops.kernels.evonorm import (EvoNormS0Function, evonorm_s0,
                                                    evonorm_s0_plain)
 
@@ -167,13 +169,26 @@ def test_model_on_card_matches_cpu(dev):
 
 
 EDT_CASES = [((3, 17, 9, 11), 1.0), ((2, 5, 300, 7), 1.5), ((1, 33, 40, 155), 1.5),
-             ((1, 240, 3, 2), 1.0), ((70, 1), 1.0)]
+             ((1, 240, 3, 2), 1.0), ((70, 1), 1.0), ((2, 240, 7, 155), 1.0),
+             ((3, 2, 1, 240), 2.0), ((33, 155, 2), 1.0)]
+
+
+def _assert_envelope(got, want, sampling, what):
+    """Bit for bit at unit sampling (integer values); within rtol 1e-6
+    otherwise, where parabolas within an ulp may be chosen otherwise than
+    the scan chooses them."""
+    if sampling == 1.0:
+        assert torch.equal(got, want), what
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0, msg=what)
 
 
 @pytest.mark.parametrize("shape,sampling", EDT_CASES)
 def test_edt_envelope_matches_plain_bit_for_bit(dev, shape, sampling):
-    """Every axis, odd lengths, a line longer than a block (300), inner
-    strides of 1, 2, 7 and 33, with the 1e12 sentinels and finite values."""
+    """Every axis, odd lengths, lines longer than a block (300) and of the
+    full case (155, 240), inner strides of 1, 2, 7 and 33, with the 1e12
+    sentinels and integer values: bit for bit at sampling 1, rtol 1e-6 at
+    1.5 and 2."""
     gen = torch.Generator(device=dev).manual_seed(sum(shape))
     g = torch.where(torch.rand(shape, generator=gen, device=dev) > 0.5, INF, 0.0)
     g = g + torch.randint(0, 3, shape, generator=gen, device=dev).float()
@@ -182,7 +197,61 @@ def test_edt_envelope_matches_plain_bit_for_bit(dev, shape, sampling):
         got = envelope(g, sampling, axis)
         torch.cuda.synchronize()
         assert edt.launches == before + 1
-        assert torch.equal(got, envelope_plain(g, sampling, axis)), f"axis {axis}"
+        _assert_envelope(got, envelope_plain(g, sampling, axis), sampling, f"axis {axis}")
+
+
+@pytest.mark.parametrize("shape", [(3, 17, 9, 11), (2, 9, 240, 5)])
+def test_edt_envelope_float_path_at_unit_sampling(dev, shape):
+    """Lines holding a non-integer take the kernel's float path (Meijster
+    with an fp32 separator) at unit sampling too: within rtol 1e-6 of the
+    scan, beside lines on the integer path in the same launch."""
+    gen = torch.Generator(device=dev).manual_seed(sum(shape) + 1)
+    g = torch.where(torch.rand(shape, generator=gen, device=dev) > 0.5, INF, 0.0)
+    g = g + torch.randint(0, 30, shape, generator=gen, device=dev).float()
+    g[0] = g[0] + 0.5 * (g[0] < INF)
+    for axis in range(1, g.dim()):
+        torch.testing.assert_close(envelope(g, 1.0, axis), envelope_plain(g, 1.0, axis),
+                                   rtol=1e-6, atol=0, msg=f"axis {axis}")
+
+
+def _edge_lines(n):
+    """All-sentinel, a single zero (first, middle, last), zeros at both ends
+    only, and random squared distances up to the full case's largest."""
+    g = torch.full((6, n), INF)
+    g[1, 0] = g[2, n // 2] = g[3, n - 1] = 0.0
+    g[4, 0] = g[4, n - 1] = 0.0
+    g[5] = torch.randint(0, 139226, (n,), generator=torch.Generator().manual_seed(n)).float()
+    return g
+
+
+@pytest.mark.parametrize("n", [1, 2, 155, 240])
+@pytest.mark.parametrize("sampling", [1.0, 1.5])
+def test_edt_envelope_edge_lines(dev, n, sampling):
+    g = _edge_lines(n)
+    for axis, x in ((1, g), (0, g.t().contiguous())):
+        got = envelope(x.to(dev), sampling, axis).cpu()
+        _assert_envelope(got, envelope_plain(x, sampling, axis), sampling, f"axis {axis}")
+        sentinel_line = got[0] if axis == 1 else got[:, 0]
+        assert torch.equal(sentinel_line, torch.full((n,), INF))
+
+
+@pytest.mark.parametrize("shape", [(3, 17, 9, 11), (2, 240, 5, 3), (1, 4, 155, 6),
+                                   (5, 240)])
+@pytest.mark.parametrize("sampling", [1.0, 1.5])
+def test_edt_mask_pass_matches_plain_bit_for_bit(dev, shape, sampling):
+    """The mask pass reads the bool mask (contiguous or a permuted view)
+    and equals the scan of where(mask, 1e12, 0) bit for bit at any
+    sampling; an all-True line gives 1e12."""
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    mask = torch.rand(shape, generator=gen, device=dev) > 0.6
+    mask[0] = True
+    for m in (mask, mask.transpose(0, -1)):
+        for axis in range(m.dim()):
+            before = edt.launches
+            got = envelope_mask(m, sampling, axis)
+            torch.cuda.synchronize()
+            assert edt.launches == before + 1
+            assert torch.equal(got, envelope_mask_plain(m, sampling, axis)), f"axis {axis}"
 
 
 def test_edt_sq_on_card_matches_scipy(dev):
@@ -227,16 +296,58 @@ def test_trainable_kernels_grads_match_plain_autograd(dev, dtype):
 
 def test_hd_loss_on_card_matches_cpu(dev):
     """dice_hd on channels-last views (as the train loader's batches reach
-    the loss, B = 1): the card (EDT kernel) against the CPU (plain
-    envelope), within 1e-5 relative; 6 envelope launches."""
-    from brats21_tpu_torch.learning.losses import make_criterion
+    the loss, B = 1): the card (EDT kernels) against the CPU (plain
+    envelope), within 1e-5 relative; one EDT batch of the target and the
+    prediction, 3 envelope launches. Under deep supervision the batched
+    loss (3 launches for three heads) equals the head-by-head mean on the
+    card bit for bit (9 launches); each head's prediction one-hot and the
+    maps equal the CPU's bit for bit (the sigmoids differ by at most an ulp
+    and no voxel's top two channels lie that close), so each head's loss
+    and their mean match the CPU's within the same 1e-5 relative."""
+    from brats21_tpu_torch.learning.losses import (_pred_one_hot, deep_supervision_loss,
+                                                   make_criterion)
     gen = torch.Generator().manual_seed(3)
     logits = torch.randn((1, 20, 18, 16, 3), generator=gen).permute(0, 4, 1, 2, 3)
+    deeps = [torch.randn((1, 20, 18, 16, 3), generator=gen).permute(0, 4, 1, 2, 3)
+             for _ in range(2)]
     target = (torch.rand((1, 20, 18, 16, 3), generator=gen) > 0.7).float()
     target = target.permute(0, 4, 1, 2, 3)
     loss = make_criterion({"criterion": "dice_hd"})
     before = edt.launches
     got = loss(logits.to(dev), target.to(dev)).item()
-    assert edt.launches == before + 6
+    assert edt.launches == before + 3
     want = loss(logits, target).item()
     assert abs(got - want) <= 1e-5 * abs(want)
+    heads = [h.to(dev) for h in [logits] + deeps]
+    before = edt.launches
+    batched = deep_supervision_loss(loss, (heads[0], heads[1:]), target.to(dev))
+    assert edt.launches == before + 3
+    head_by_head = torch.stack([loss(h, target.to(dev)) for h in heads]).mean()
+    assert edt.launches == before + 3 + 9
+    assert torch.equal(batched, head_by_head)
+    tdm, pdms = loss.maps(heads, target.to(dev))
+    want_tdm, want_pdms = loss.maps([logits] + deeps, target)
+    assert torch.equal(tdm.cpu(), want_tdm)
+    for i, (h, pdm, want_pdm) in enumerate(zip([logits] + deeps, pdms, want_pdms)):
+        assert torch.equal(_pred_one_hot(heads[i], None, True, False).cpu(),
+                           _pred_one_hot(h, None, True, False)), f"head {i}"
+        assert torch.equal(pdm.cpu(), want_pdm), f"head {i}"
+        got = loss(heads[i], target.to(dev), maps=(tdm, pdm)).item()
+        want = loss(h, target, maps=(want_tdm, want_pdm)).item()
+        assert abs(got - want) <= 1e-5 * abs(want), f"head {i}: {got} vs {want}"
+    want = deep_supervision_loss(loss, (logits, deeps), target).item()
+    assert abs(batched.item() - want) <= 1e-5 * abs(want)
+
+
+def test_distance_map_on_card_equals_cpu(dev):
+    """compute_distance_map_fn on the card (side stream, the loader's
+    path) equals the CPU's bit for bit: 3 envelope launches, one batch of
+    the 6 masks."""
+    import numpy as np
+    from brats21_tpu_torch.data.transforms import compute_distance_map_fn
+    seg = (np.random.default_rng(2).random((40, 37, 29, 3)) > 0.8).astype(np.float32)
+    seg[..., 2] = 0.0
+    before = edt.launches
+    got = compute_distance_map_fn(seg, dev)
+    assert edt.launches == before + 3
+    np.testing.assert_array_equal(got, compute_distance_map_fn(seg, "cpu"))

@@ -77,8 +77,7 @@ def test_pad_unpad_and_codecs_byte_equal(synthetic_case):
         sample["original_shape"]))
     _assert_same(T.remove_background_voxels(sample["img"], mc),
                  jax_T.remove_background_voxels(sample["img"], mc))
-    with pytest.raises(NotImplementedError, match="EDT"):
-        T.compute_distance_map_fn(mc)
+    _assert_same(T.compute_distance_map_fn(mc, "cpu"), jax_T.compute_distance_map_fn(mc))
 
 
 def test_nifti_round_trip_byte_equal(tmp_path):

@@ -77,8 +77,15 @@ def test_deep_supervision_loss_matches_jax():
 
 @pytest.mark.parametrize("name", ["boundary", "dice_boundary"])
 def test_boundary_criteria_are_queued(name):
-    with pytest.raises(NotImplementedError, match="distance maps"):
-        plosses.make_criterion({"criterion": name})
+    """Once queued, now ported: each boundary criterion on a (seg,
+    distance_map) target equals the JAX package's within 1e-5."""
+    logits, target = _logits_target(6)
+    dm = np.random.default_rng(6).standard_normal(target.shape).astype(np.float32)
+    want = float(jlosses.make_criterion({"criterion": name})(
+        jnp.asarray(logits), (jnp.asarray(target), jnp.asarray(dm))))
+    got = float(plosses.make_criterion({"criterion": name})(
+        _ncdhw(logits), (_ncdhw(target), _ncdhw(dm))))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 # ----------------------------------------------------- trainable kernels
@@ -346,7 +353,7 @@ def test_train_loader_batches_and_split_match_jax(train_data):
     cfg = JaxTrainConfig(train_data_path=str(train_data), fold=None, batch_size=1,
                          patch_size=[16, 16, 16], num_workers=1, remove_outliers=True)
     jloader, _ = make_train_val_loaders(cfg)
-    ploader = make_train_loader(cfg, create_train_val_records(cfg)[0])
+    ploader = make_train_loader(cfg, create_train_val_records(cfg)[0], "cpu")
     for epoch in (1, 2):
         jloader.set_epoch(epoch)
         want = list(jloader)
