@@ -71,6 +71,8 @@ def build_train_parser() -> argparse.ArgumentParser:
                    choices=["auto", "sparse", "dense"],
                    help="accepted for the JAX package's command lines; its "
                         "TPU eval wire format, ignored here")
+    g.add_argument("--eval_bucket", type=int, default=8,
+                   help="pad eval volumes to multiples of this (a multiple of 8)")
     g.add_argument("--seed", type=int, default=123)
     g.add_argument("--fold", default=0, type=lambda x: None if x == "None" else int(x))
     g.add_argument("--device", type=str, default="0",
@@ -116,7 +118,9 @@ def build_train_parser() -> argparse.ArgumentParser:
 
 def get_train_args(argv=None) -> TrainConfig:
     """arguments_train.py:182-223, with the resume reload of the run's
-    config.yaml (``--resume RUN/last_model.pth``)."""
+    config.yaml (``--resume RUN/last_model.pth``). The reload keeps this
+    command's ``--only_evaluate``, which the JAX package's reload drops
+    (so there ``--only_evaluate --resume`` trains on)."""
     args = build_train_parser().parse_args(argv)
     if args.only_evaluate and not args.resume:
         raise ValueError("if only_evaluate: the config file .yaml corresponding "
@@ -130,6 +134,7 @@ def get_train_args(argv=None) -> TrainConfig:
         cfg.train_data_path = args.train_data_path
         cfg.val_data_path = args.val_data_path
         cfg.device = args.device
+        cfg.only_evaluate = args.only_evaluate
         return cfg.validate()
     return TrainConfig.from_dict(vars(args)).validate()
 
@@ -157,6 +162,14 @@ def build_inference_parser() -> argparse.ArgumentParser:
     g.add_argument("--watch", action="store_true", default=False,
                    help="serve mode: keep polling the input directory "
                         "(not ported yet)")
+    g.add_argument("--watch_interval", type=float, default=5.0,
+                   help="poll period in seconds for --watch (not ported yet)")
+    g.add_argument("--watch_stop_file", type=str, default=None,
+                   help="exit the --watch loop when this file appears "
+                        "(not ported yet)")
+    g.add_argument("--watch_warmup", type=int, nargs=3, default=None,
+                   metavar=("X", "Y", "Z"),
+                   help="warm-up case shape for --watch (not ported yet)")
     g.add_argument("--import_pth", type=str, nargs="+", default=None,
                    help="reference torch checkpoint(s) (.pth) to serve, one "
                         "per --config")
@@ -174,6 +187,8 @@ def build_inference_parser() -> argparse.ArgumentParser:
     g.add_argument("--cleaning_areas_threshold", type=int, default=10)
     g.add_argument("--replace_value", action="store_true", default=False)
     g.add_argument("--replace_value_threshold", type=int, default=20)
+    g.add_argument("--eval_bucket", type=int, default=8,
+                   help="pad eval volumes to multiples of this (a multiple of 8)")
     return parser
 
 

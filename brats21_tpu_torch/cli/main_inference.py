@@ -1,15 +1,18 @@
-"""Inference CLI — reference src/main_inference.py:24-96 for ``--on
-test``: load N configs + reference ``.pth`` checkpoints as an ensemble,
-segment every test case (TTA and post-processing as asked) and write the
-NIfTI label maps.
+"""Inference CLI — reference src/main_inference.py:24-96: load N configs +
+reference ``.pth`` checkpoints as an ensemble, segment every case of the
+test set (``--on test``) or of the first config's val or train split
+(``--on val|train``, scored against its segs into
+``Evaluation_inference_{on}*.xlsx/.csv``), with TTA, sliding windows,
+STAPLE and post-processing as asked, and write the NIfTI label maps.
 
     python -m brats21_tpu_torch.cli.main_inference --config run/config.yaml \\
         --import_pth run/best_model.pth --on test --input cases/ \\
-        --output out/ [--tta] [--cleaning_areas] [--replace_value] [--device cpu]
+        --output out/ [--tta] [--sliding_window_inference] [--perform_staple] \\
+        [--cleaning_areas] [--replace_value] [--device cpu]
 
 Runs on ``cuda:<--device>``; ``--device cpu`` runs on the host with the
-kernels' plain PyTorch versions. Paths not ported yet raise
-``NotImplementedError`` rather than being ignored.
+kernels' plain PyTorch versions. ``--watch`` serving is not ported yet and
+raises ``NotImplementedError`` rather than being ignored.
 """
 
 from __future__ import annotations
@@ -17,15 +20,19 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import List
+from typing import Dict
 
 import torch
 from torch import nn
 
 from .. import set_main_logger
-from ..data.pipeline import make_test_loader
+from ..config import TrainConfig
+from ..data.pipeline import make_test_loader, make_train_val_loaders
 from ..learning.engine import Engine
+from ..learning.losses import make_criterion
 from ..models import get_model
+from ..utils.meter import AverageMeter
+from ..utils.reporting import EvaluationReport
 from ..utils.weights import load_reference_pth
 from .arguments import get_inference_args
 
@@ -68,18 +75,7 @@ def post_kwargs_from_cfg(cfg) -> dict:
 
 def check_ported(ns: argparse.Namespace) -> None:
     """Raise for the flags whose paths come with later slices."""
-    if ns.on != "test":
-        raise NotImplementedError(
-            f"--on {ns.on} needs metrics and the evaluation report "
-            "(utils/metrics.py, utils/reporting.py): a later slice of the port")
-    if ns.sliding_window_inference:
-        raise NotImplementedError(
-            "--sliding_window_inference comes with a later slice of the port "
-            "(ops/sliding_window.py)")
-    if ns.perform_staple:
-        raise NotImplementedError(
-            "--perform_staple comes with a later slice of the port (ops/staple.py)")
-    if ns.watch:
+    if ns.watch or ns.watch_warmup is not None or ns.watch_stop_file is not None:
         raise NotImplementedError(
             "--watch serving comes with a later slice of the port")
     if not ns.import_pth:
@@ -98,10 +94,11 @@ def load_member(ns: argparse.Namespace, device: torch.device) -> nn.Module:
     return model.to(device).eval()
 
 
-def main(argv=None) -> List[float]:
-    """Run the CLI; returns the per-case seconds."""
+def main(argv=None) -> Dict[str, AverageMeter]:
+    """Run the CLI; returns the evaluation's meters (``batch_time`` holds
+    the per-case seconds)."""
     total_start = time.time()
-    config_dict, _ = get_inference_args(argv)
+    config_dict, experience_name = get_inference_args(argv)
     members_ns = list(config_dict.values())
     cfg0 = members_ns[0]
     for ns in members_ns:
@@ -115,19 +112,35 @@ def main(argv=None) -> List[float]:
     logger.info("device: %s%s", device, f" ({torch.cuda.get_device_name(device)})"
                 if device.type == "cuda" else "")
 
-    loader = make_test_loader(cfg0)
+    # the first member's run config, with the inference flags (the
+    # TrainConfig fields among them come through from_dict)
+    cfg = TrainConfig.from_dict(vars(cfg0))
+    cfg.create_patient_dir = cfg0.create_patient_dir
+    if cfg0.on == "train":
+        _, loader = make_train_val_loaders(cfg, device, train_in_val_mode=True)
+    elif cfg0.on == "val":
+        _, loader = make_train_val_loaders(cfg, device)
+    else:
+        loader = make_test_loader(cfg0)
     if loader is None:
-        raise ValueError(f"no complete test case found in {cfg0.test_data_path}")
+        raise ValueError(f"no case found for --on {cfg0.on}")
     members = [load_member(ns, device) for ns in members_ns]
     logger.info("ensemble of %d member(s)", len(members))
 
-    engine = Engine(cfg0, device)
-    times = engine.evaluate(
-        members, loader,
-        os.path.join(cfg0.save_path, f"Inference_segmentations_{cfg0.on}"),
-        use_tta=bool(cfg0.tta), post_kwargs=post_kwargs_from_cfg(cfg0))
+    engine = Engine(cfg, device, criterion=make_criterion(cfg))
+    with_target = cfg0.on in ("val", "train")
+    name = f"Evaluation_inference_{cfg0.on}{experience_name}"
+    report = EvaluationReport(autosave_dir=cfg0.save_path, name=name) if with_target else None
+    meters = engine.evaluate(
+        members, loader, 0, use_tta=bool(cfg0.tta), save_seg=True,
+        output_path=os.path.join(cfg0.save_path, f"Inference_segmentations_{cfg0.on}"),
+        perform_staple=bool(cfg0.perform_staple), staple_threshold=cfg0.staple_threshold,
+        post_kwargs=post_kwargs_from_cfg(cfg0), report=report,
+        step_mode=f"metric_{cfg0.on}")
+    if report is not None:
+        report.save(cfg0.save_path)
     logger.info("total time: %.1fs", time.time() - total_start)
-    return times
+    return meters
 
 
 if __name__ == "__main__":

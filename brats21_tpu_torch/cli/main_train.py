@@ -8,11 +8,16 @@ model, criterion, optimizer → epochs → best/last checkpoints.
         --learning_rate 3e-4 --use_gc --remove_outliers --fold None [--device cpu]
 
 Runs on ``cuda:<--device>``; ``--device cpu`` runs on the host with the
-kernels' plain PyTorch versions. With ``--fold None`` the checkpoints follow
-the train loss after every epoch (``main_train.py:282-283``). Validation,
-the end-of-training evaluation and ``--only_evaluate`` come with a later
-slice: a run that would reach them raises ``NotImplementedError`` before
-its first step. Multi-host runs and preemption are not ported.
+kernels' plain PyTorch versions. With ``--fold k`` the fold's val cases are
+evaluated every ``--val_frequency`` epochs — the SWA average past
+``--swa_start`` — and the checkpoints follow the validation loss (or the
+mean key metric); with ``--fold None`` they follow the train loss after
+every epoch (``main_train.py:282-283``), and ``--val_data_path`` may name
+the val cases. ``--debug_val`` skips the train epochs.
+``--evaluate_end_training`` and ``--only_evaluate`` reload the best weights
+and evaluate the val cases without and with TTA into
+``segmentations{,_tta}/`` and ``Evaluation{,_tta}.xlsx/.csv``. Multi-host
+runs and preemption are not ported.
 """
 
 from __future__ import annotations
@@ -23,29 +28,34 @@ import warnings
 from datetime import datetime
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
-from .. import set_main_logger
+from .. import get_logger, set_main_logger
 from ..config import TrainConfig, make_experience_name
-from ..data.pipeline import create_train_val_records, make_train_loader
-from ..learning.checkpoint import CheckpointManager, resume
+from ..data.pipeline import make_train_val_loaders
+from ..learning.checkpoint import CheckpointManager, load_for_evaluation, resume
 from ..learning.engine import Engine
 from ..learning.losses import make_criterion
 from ..learning.optimizers import make_optimizer
 from ..learning.train_state import TrainState, TrainStep
 from ..models import get_model
 from ..utils.meter import AverageMeter, ProgressMeter
+from ..utils.reporting import EvaluationReport, TensorBoardLogger
 from .arguments import get_train_args
-from .main_inference import resolve_device
+from .main_inference import post_kwargs_from_cfg, resolve_device
+
+logger = get_logger("main_train")
 
 
-def setup_save_path(cfg: TrainConfig) -> None:
+def setup_save_path(cfg: TrainConfig) -> dict:
     """Experiment directory naming, with the too-long-name fallback
-    (main_train.py:47-64); a resumed run keeps its directory."""
+    (main_train.py:47-64); a resumed run keeps its directory. Returns the
+    hyper-parameters for the TensorBoard hparams table."""
+    name, h_params = make_experience_name(cfg)
     if cfg.resume:
-        return
+        return h_params
     original = cfg.save_path
-    name, _ = make_experience_name(cfg)
     cfg.save_path = os.path.join(original, name if not cfg.no_full_name else "")
     try:
         os.makedirs(cfg.save_path, exist_ok=True)
@@ -54,66 +64,62 @@ def setup_save_path(cfg: TrainConfig) -> None:
                       "with the current date and time")
         cfg.save_path = os.path.join(original, datetime.now().strftime("%b%d_%H-%M-%S-%f"))
         os.makedirs(cfg.save_path, exist_ok=True)
+    return h_params
 
 
-_LATER = ("needs validation (engine.evaluate in val mode, utils/metrics.py): "
-          "a later slice of the port")
-
-
-def check_ported(cfg: TrainConfig) -> None:
-    """Raise, before any step, for what needs validation (``engine.evaluate``
-    in val mode and ``utils/metrics.py``, a later slice): a validation set,
-    the end-of-training evaluation, ``--only_evaluate`` and ``--debug_val``
-    (:func:`check_fold_validation` covers the fold's validation epochs)."""
-    if cfg.only_evaluate:
-        raise NotImplementedError(f"--only_evaluate {_LATER}")
-    if cfg.evaluate_end_training:
-        raise NotImplementedError(f"--evaluate_end_training {_LATER}")
-    if cfg.val_data_path is not None:
-        raise NotImplementedError(f"--val_data_path {_LATER}")
-    if cfg.debug_val:
-        raise NotImplementedError(f"--debug_val {_LATER}")
-
-
-def check_fold_validation(cfg: TrainConfig, start_epoch: int) -> None:
-    """Raise when a fold's validation epoch (every ``val_frequency``) falls
-    inside epochs start_epoch..epochs."""
-    if cfg.fold is not None and any(e % cfg.val_frequency == 0
-                                    for e in range(start_epoch, cfg.epochs + 1)):
-        raise NotImplementedError(
-            f"--fold {cfg.fold} validates every {cfg.val_frequency} epochs, which "
-            f"{_LATER}; train fewer epochs or use --fold None")
+def evaluate_end_training(cfg: TrainConfig, engine: Engine, valid_loader,
+                          h_params: dict, tb: TensorBoardLogger, device) -> Dict[str, float]:
+    """Reload best (last's SWA average on SWA runs) and evaluate without and
+    with TTA, saving the segmentations and the Evaluation reports
+    (main_train.py:197-243); returns each run's mean key metric."""
+    model = get_model(cfg)
+    model.load_state_dict(load_for_evaluation(cfg.save_path, bool(cfg.swa_start)))
+    model = model.to(device).eval()
+    out: Dict[str, float] = {}
+    for eval_type in ("", "_tta"):
+        logger.info("Starting Evaluation %s", eval_type)
+        engine.val_step = 0
+        suffix = f"_swa{eval_type}" if cfg.swa_start else eval_type
+        report = EvaluationReport(autosave_dir=cfg.save_path, name=f"Evaluation{suffix}")
+        meters = engine.evaluate(
+            [model], valid_loader, 0, use_tta=bool(eval_type), save_seg=True,
+            output_path=os.path.join(cfg.save_path, f"segmentations{eval_type}"),
+            post_kwargs=post_kwargs_from_cfg(cfg), report=report,
+            step_mode="metric_val")
+        report.save(cfg.save_path)
+        summary = {f"{k}_mean": float(np.nanmean(m.avg)) for k, m in meters.items()
+                   if k not in ("batch_time", "data_time")}
+        tb.log_hparams({**h_params, "tta": bool(eval_type), "swa": bool(cfg.swa_start)},
+                       summary)
+        out[f"eval{suffix}_{cfg.key_metric[0]}"] = summary[f"{cfg.key_metric[0]}_mean"]
+    return out
 
 
 def main(argv=None) -> Dict[str, float]:
-    """Run the CLI; returns the last epoch's mean train loss and the run
-    directory's best value."""
+    """Run the CLI; returns the last epoch's mean train loss and validation
+    loss, the run directory's best value and, after the end-of-training
+    evaluation, its mean key metrics."""
     total_start = time.time()
     cfg = get_train_args(argv)
-    check_ported(cfg)
     device = resolve_device(cfg.device)
     payload: Optional[dict] = None
     start_epoch = 1
     if cfg.resume:
         payload = torch.load(cfg.resume, map_location="cpu", weights_only=True)
         start_epoch = int(payload["epoch"]) + 1
-    check_fold_validation(cfg, start_epoch)
-    setup_save_path(cfg)
+    h_params = setup_save_path(cfg)
     if not cfg.resume:
         cfg.to_yaml(os.path.join(cfg.save_path, "config.yaml"))
     logger = set_main_logger(os.path.join(cfg.save_path, "logfile.log"),
                              verbosity=max(cfg.verbosity, 1))
     logger.info("device: %s%s", device, f" ({torch.cuda.get_device_name(device)})"
                 if device.type == "cuda" else "")
-    if not cfg.no_tensorboard:
-        logger.warning("TensorBoard logging comes with a later slice of the port "
-                       "(utils/reporting.py); the meters go to the log only")
+    tb = TensorBoardLogger(cfg.save_path, enabled=not cfg.no_tensorboard)
 
-    train_files, _ = create_train_val_records(cfg)
-    loader = make_train_loader(cfg, train_files, device)
-    if loader is None:
+    train_loader, valid_loader = make_train_val_loaders(cfg, device)
+    if train_loader is None and not (cfg.only_evaluate or cfg.debug_val):
         raise ValueError(f"no training case found in {cfg.train_data_path}")
-    steps_per_epoch = max(len(loader), 1)
+    steps_per_epoch = max(len(train_loader), 1) if train_loader else 1
 
     torch.manual_seed(cfg.seed)
     model = get_model(cfg).to(device)
@@ -123,7 +129,7 @@ def main(argv=None) -> Dict[str, float]:
     state = TrainState(model, optimizer, swa)
     step = TrainStep(criterion, use_amp=not cfg.no_amp,
                      log_metrics=cfg.log_train_metrics)
-    engine = Engine(cfg, device)
+    engine = Engine(cfg, device, criterion=criterion, tb=tb)
     ckpt = CheckpointManager(cfg.save_path, save_on=cfg.save_on,
                              key_metric=cfg.key_metric[0])
     if payload is not None:
@@ -134,19 +140,43 @@ def main(argv=None) -> Dict[str, float]:
 
     epoch_time = AverageMeter("Time", ":6.3f")
     progress = ProgressMeter(cfg.epochs, [epoch_time], prefix="Epoch: ")
-    logger.info("Time elapsed before training: %.1fs", time.time() - total_start)
-    t0 = time.time()
     result: Dict[str, float] = {}
-    for epoch in range(start_epoch, cfg.epochs + 1):
-        meters = engine.train_epoch(state, step, loader, epoch)
-        epoch_time.update(time.time() - t0)
+    if not cfg.only_evaluate:
+        logger.info("Time elapsed before training: %.1fs", time.time() - total_start)
         t0 = time.time()
-        progress.display(epoch)
-        result["train_loss"] = float(meters["loss"].avg)
-        if cfg.fold is None:
-            ckpt.save(state, epoch, result["train_loss"])
+        for epoch in range(start_epoch, cfg.epochs + 1):
+            train_meters = None
+            if not cfg.debug_val:
+                train_meters = engine.train_epoch(state, step, train_loader, epoch)
+                result["train_loss"] = float(train_meters["loss"].avg)
+            epoch_time.update(time.time() - t0)
+            t0 = time.time()
+            progress.display(epoch)
+            if cfg.fold is not None and epoch % cfg.val_frequency == 0 \
+                    and valid_loader is not None:
+                # past swa_start the SWA average is validated
+                # (reference engine.py:184-187)
+                use_swa = bool(cfg.swa_start) and epoch > cfg.swa_start
+                val_model = (state.swa_model.module if use_swa else state.model).eval()
+                val_meters = engine.evaluate(
+                    [val_model], valid_loader, epoch, post_kwargs=post_kwargs_from_cfg(cfg),
+                    step_mode="val_swa" if use_swa else "val")
+                state.model.train()
+                result["val_loss"] = float(val_meters["loss"].avg)
+                value = (val_meters["loss"].avg if cfg.save_on == "loss"
+                         else float(np.nanmean(val_meters[cfg.key_metric[0]].avg)))
+                ckpt.save(state, epoch, float(value))
+                if train_meters is not None:
+                    tb.log_scalar("Loss/overfit",
+                                  val_meters["loss"].avg - train_meters["loss"].avg, epoch)
+            if cfg.fold is None and train_meters is not None:
+                ckpt.save(state, epoch, result["train_loss"])
     if ckpt.best_value is not None:
         result["best_value"] = ckpt.best_value
+    if (cfg.evaluate_end_training or cfg.only_evaluate) and valid_loader is not None:
+        result.update(evaluate_end_training(cfg, engine, valid_loader, h_params, tb,
+                                            device))
+    tb.close()
     logger.info("total time: %.1fs", time.time() - total_start)
     return result
 

@@ -104,6 +104,9 @@ class TrainConfig:
     sliding_window_inference: bool = False
     sliding_window_size: List[int] = field(default_factory=lambda: [128, 128, 128])
     verbosity: int = 0
+    # eval cases are padded to multiples of this (the reference's 8,
+    # engine.py:192); the JAX package's coarser buckets cut its compiles
+    eval_bucket: int = 8
 
     def validate(self) -> "TrainConfig":
         if self.model not in MODEL_CHOICES:
@@ -118,6 +121,7 @@ class TrainConfig:
             raise ValueError("gradient_accumulation_iter must be > 0")
         if self.fold is not None and self.fold not in (0, 1, 2, 3, 4):
             raise ValueError("fold must be in 0..4 or None")
+        check_eval_bucket(self.eval_bucket)
         return self
 
     # --- yaml roundtrip (config.yaml contract, main_train.py:67-69)
@@ -137,6 +141,15 @@ class TrainConfig:
     def from_yaml(cls, path: str) -> "TrainConfig":
         with open(path) as f:
             return cls.from_dict(yaml.safe_load(f))
+
+
+def check_eval_bucket(bucket: int) -> int:
+    """The eval pad must be a multiple of 8, the model's downsampling
+    factor, or the skip concats' shapes differ."""
+    if bucket < 8 or bucket % 8:
+        raise ValueError(f"eval bucket must be a multiple of 8 (the model's "
+                         f"downsampling factor), got {bucket}")
+    return bucket
 
 
 #: group name -> field names, mirroring the argparse groups that drive

@@ -3,7 +3,8 @@
 ``brats21_tpu/data/pipeline.py`` without JAX: NIfTI decode, numpy
 preprocessing and the train augmentations run in background threads while
 the card computes the previous step or case; batches are numpy arrays that
-the engine copies to the device. The split follows definer.py:583-628
+the engine copies to the device. The boundary criteria's distance maps are
+made on the run's device. The split follows definer.py:583-628
 (KFold(5, shuffle, seed)). The native (ctypes) loader and multi-host
 striping come with later slices.
 """
@@ -47,18 +48,26 @@ class BraTSDataset:
     """Lazy per-case dataset: record → preprocessed sample dict (numpy
     path of the JAX package's dataset). Eval datasets normalize at load;
     train datasets load raw (``normalize=False``) and the loader normalizes
-    after the augmentations (definer.py:458-468)."""
+    after the augmentations (definer.py:458-468). With
+    ``compute_distance_map`` (the boundary criteria's eval datasets) each
+    sample carries the seg's distance map, made on ``device``, which it
+    then needs."""
 
     def __init__(self, records: List[Dict[str, Any]], *,
                  with_seg: bool, remove_outliers: bool = False,
                  crop: bool = True, already_preprocess: bool = False,
-                 normalize: bool = True):
+                 normalize: bool = True, compute_distance_map: bool = False,
+                 device: Any = None):
+        if compute_distance_map and device is None:
+            raise ValueError("compute_distance_map needs a device for the EDT")
         self.records = records
         self.with_seg = with_seg
         self.remove_outliers = remove_outliers
         self.crop = crop and not already_preprocess
         self.already_preprocess = already_preprocess
         self.normalize = normalize and not already_preprocess
+        self.compute_distance_map = compute_distance_map
+        self.device = device
 
     def __len__(self) -> int:
         return len(self.records)
@@ -68,12 +77,13 @@ class BraTSDataset:
         img, seg, affine = load_case(record)
         if not self.with_seg:
             seg = None
+        dm = dict(compute_distance_map=self.compute_distance_map, device=self.device)
         if self.already_preprocess:
             # skip crop+normalize (definer.py:476-479)
-            sample = preprocess_case(img, seg, crop=False, normalize=False)
+            sample = preprocess_case(img, seg, crop=False, normalize=False, **dm)
         else:
             sample = preprocess_case(img, seg, remove_outliers=self.remove_outliers,
-                                     crop=self.crop, normalize=self.normalize)
+                                     crop=self.crop, normalize=self.normalize, **dm)
         sample["affine"] = affine
         sample["patient_id"] = record["patient_id"]
         return sample
@@ -159,7 +169,7 @@ class _PrefetchIterator:
 
 
 class EvalLoader:
-    """Batch-size-1 loader for test cases (reference val loader,
+    """Batch-size-1 loader for val and test cases (reference val loader,
     definer.py:524); decodes ``prefetch`` cases ahead in one thread."""
 
     def __init__(self, dataset: BraTSDataset, prefetch: int = 2):
@@ -264,6 +274,29 @@ def make_train_loader(cfg: Any, train_files: Sequence[Dict],
     return TrainLoader(ds, cfg.batch_size, cfg.patch_size, seed=cfg.seed,
                        num_workers=cfg.num_workers,
                        compute_dm="boundary" in cfg.criterion, device=device)
+
+
+def make_train_val_loaders(cfg: Any, device: Any, train_in_val_mode: bool = False
+                           ) -> Tuple[Optional[TrainLoader], Optional[EvalLoader]]:
+    """definer.py:438-527 (the JAX package's ``make_train_val_loaders``,
+    single process): the train loader, and the eval loader over the val
+    cases (the train cases with ``train_in_val_mode``), whose samples carry
+    the seg and, for the boundary criteria, its distance map made on
+    ``device``."""
+    train_files, val_files = create_train_val_records(cfg)
+    train_loader = None
+    if not train_in_val_mode:
+        train_loader = make_train_loader(cfg, train_files, device)
+    eval_files = train_files if train_in_val_mode else val_files
+    val_loader = None
+    if eval_files:
+        val_ds = BraTSDataset(list(eval_files), with_seg=True,
+                              remove_outliers=cfg.remove_outliers,
+                              already_preprocess=cfg.already_preprocess,
+                              compute_distance_map="boundary" in cfg.criterion,
+                              device=device)
+        val_loader = EvalLoader(val_ds, prefetch=max(cfg.num_workers // 2, 1))
+    return train_loader, val_loader
 
 
 def discover_test_records(cfg: Any) -> list:

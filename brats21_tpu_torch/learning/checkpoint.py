@@ -6,7 +6,8 @@ tracked value improves, ``best_model.pth``; "best" is the lowest loss or
 hausdorff_distance95, else the highest key metric. Each file is the
 reference's payload ``{"model", "optimizer", "epoch", "best_value"}``, plus
 ``"swa_model"`` (an AveragedModel's state_dict) on SWA runs, so
-``utils/weights.py:load_reference_pth`` and the reference read it.
+``utils/weights.py:load_reference_pth`` and the reference read it;
+:func:`load_for_evaluation` is the end-of-training reload.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from .. import get_logger
+from ..utils.weights import load_reference_pth
 from .train_state import TrainState
 
 logger = get_logger("checkpoint")
@@ -71,3 +73,11 @@ def resume(state: TrainState, payload: Dict[str, Any]) -> None:
     state.optimizer.load_state_dict(payload["optimizer"])
     if state.swa_model is not None and "swa_model" in payload:
         state.swa_model.load_state_dict(payload["swa_model"])
+
+
+def load_for_evaluation(save_dir: str, swa: bool) -> Dict[str, torch.Tensor]:
+    """The weights the end-of-training evaluation reloads
+    (main_train.py:197-243): ``best_model.pth``, or ``last_model.pth``'s
+    SWA average on SWA runs."""
+    name = LAST_NAME if swa else BEST_NAME
+    return load_reference_pth(os.path.join(save_dir, name), prefer_swa=swa)

@@ -5,7 +5,9 @@ Port of ``brats21_tpu/ops/tta.py``. The 16-combo set —
 (definer.py:653-657) — runs as a Python loop in the reference order, each
 combo augmenting the volume, running the model, de-augmenting the main
 head and adding its fp32 sigmoid probabilities to one accumulator, so
-memory stays one volume's worth whatever the combo count.
+memory stays one volume's worth whatever the combo count. With a
+criterion and a target (validation), each combo's whole output tree is
+de-augmented and its deep-supervision loss added to a second accumulator.
 
 Layout: channels-last ``[B, s0, s1, s2, C]`` as in the JAX package.
 Torch spatial dims (2,3,4) map to (1,2,3): HorizontalFlip = flip axis 2,
@@ -15,9 +17,11 @@ Flips/rot90 mix axes 1 and 2, so TTA requires s0 == s1 (pad first).
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
+
+from ..learning.losses import deep_supervision_loss
 
 
 def main_head(out: Any) -> torch.Tensor:
@@ -85,24 +89,45 @@ def deaug_flip_rot(y: torch.Tensor, flip: bool, angle: int) -> torch.Tensor:
     return y
 
 
+def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
+    """``fn`` on every tensor of a model output (a tensor, or nested
+    tuples/lists of them)."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, t) for t in tree)
+    return fn(tree)
+
+
 def tta_mean_probs(apply_fn: Callable[[torch.Tensor], Any], x: torch.Tensor,
+                   criterion: Optional[Callable] = None, target: Any = None,
                    axes: Sequence[str] = AXES,
-                   num_classes: int = 3) -> torch.Tensor:
-    """Mean sigmoid probabilities (fp32) of the main head over the TTA
-    combos — the engine.py:229-249 fusion. ``apply_fn`` maps a channels-last
-    volume to the model output (logits, or (logits, deeps))."""
+                   num_classes: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean sigmoid probabilities (fp32) of the main head, mean
+    deep-supervision loss) over the TTA combos — the engine.py:229-249
+    fusion. ``apply_fn`` maps a channels-last volume to the model output in
+    the same layout (logits, or (logits, deeps)). With ``criterion`` and
+    ``target`` (NCDHW, or the boundary criteria's (seg, distance_map) pair,
+    as the port's losses take them) each combo's de-augmented output tree
+    goes through ``deep_supervision_loss`` as NCDHW views; else the loss is
+    0."""
     if x.shape[1] != x.shape[2]:
         raise ValueError(
             f"TTA requires square first two spatial dims, got {tuple(x.shape)}; "
             "pad with pad_to_square_tta first")
     probs = torch.zeros(x.shape[:-1] + (num_classes,), dtype=torch.float32,
                         device=x.device)
+    loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    with_loss = criterion is not None and target is not None
     combos = [c for c in COMBOS if c[0] in axes]
     for axe, flip, angle in combos:
-        out = main_head(apply_fn(aug_flip_rot(aug_axes(x, axe), flip, angle)))
-        probs += torch.sigmoid(deaug_axes(deaug_flip_rot(out, flip, angle),
-                                          axe).float())
-    return probs / len(combos)
+        out = apply_fn(aug_flip_rot(aug_axes(x, axe), flip, angle))
+        if not with_loss:
+            out = main_head(out)      # de-augment the main head alone
+        out = tree_map(lambda t: deaug_axes(deaug_flip_rot(t, flip, angle), axe), out)
+        probs += torch.sigmoid(main_head(out).float())
+        if with_loss:
+            loss += deep_supervision_loss(
+                criterion, tree_map(lambda t: t.permute(0, 4, 1, 2, 3), out), target)
+    return probs / len(combos), loss / len(combos)
 
 
 def pad_to_square_tta(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int]]:

@@ -43,7 +43,28 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 11. the train CLI with ``--criterion dice_boundary`` over two of phase 9's
     cases: the loader makes each case's distance map on the card (3 EDT
     launches a case, every EDT launch of the run), the steps launch 14 / 21
-    / 0; a finite loss.
+    / 0; a finite loss;
+12. validation through the train CLI: ``--criterion dice_hd --fold 0
+    --val_frequency 1 --epochs 1 --evaluate_end_training`` over phase 9's
+    four cases and a fifth (fold 0: four train steps, one val case); a
+    finite validation loss that decides ``best_model.pth``, the
+    Evaluation reports and segmentations with and without TTA, and the
+    launches of each val case (14 / 21 / 3 plain, 224 / 336 / 48 with TTA,
+    the forward with its deep heads and the dice_hd loss's one EDT batch);
+    then one val case split into its stages for plain, TTA and sliding
+    windows, with the peak memory of the forward with deep heads;
+13. the inference CLI ``--on val`` with the run's config and a two-member
+    ensemble of different weights (its ``best_model.pth`` and phase 11's
+    ``last_model.pth``), three times: sliding windows of 128³ in batches
+    of 2, sliding × TTA, and STAPLE; each writes its report and its
+    launches a case are checked (a member: 14 / 21 a window batch, the
+    batches counted from ``dense_patch_starts`` of the case's padded
+    shape, and 3 EDT launches for its loss); STAPLE's EM iterations and
+    seconds a channel are printed, and it must iterate past its first step.
+
+Phases 2 and 7 also hold the conv and EvoNorm at the sliding window's
+batches (2 × 128³) and the EDT on the validation loss's batch (12 masks of
+the padded case) against their plain versions.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -71,6 +92,7 @@ PEAK_BYTES = 3.35e12
 # exp, add, reciprocal (sigmoid), three multiplies and an add (output)
 EVONORM_OPS = 11
 CASE_SHAPE = (240, 240, 155)
+WIDTH = 48                      # the published width (README.md:35-39)
 PATCH = (128, 128, 128)         # the train step's patch (arguments.py:52-53)
 # EDT operations per output of one envelope pass. The function needs the
 # O(n) lower envelope of parabolas (Felzenszwalb & Huttenlocher): per
@@ -88,6 +110,11 @@ TRAIN_STEP_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=3)
 # edt_sq batch (3 channels, negative and positive) a case
 BOUNDARY_STEP_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21)
 EDT_LAUNCHES_PER_LOADED_CASE = 3
+# a validation case with dice_hd: the forward with its deep heads, and the
+# loss's one EDT batch (the target and three heads, 12 masks of the case)
+VAL_CASE_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=3)
+SW_ROI = (128, 128, 128)        # --sliding_window_size's default
+SW_BATCH = 2                    # windows a forward (engine.py:459)
 # per forward of EquiUnetASSPEvo w48: (level, C_in, C_out, count) of the 3³
 # convs and (level, C, count) of the EvoNorms; level l is the padded case
 # shape // 2**(l-1)
@@ -122,9 +149,9 @@ def bound(ops: float, peak_ops: float, nbytes: float) -> tuple:
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_conv(level_shape, dev) -> dict:
-    """conv3x3x3 vs its plain version at the main path's shapes (bf16) and
-    on a 40³ block (fp32)."""
+def check_conv(level_shape, dev, batch: int = 1) -> dict:
+    """conv3x3x3 vs its plain version at the main path's shapes (bf16,
+    ``batch`` samples) and on a 40³ block (fp32)."""
     import torch
     import torch.nn.functional as F
     from brats21_tpu_torch.ops.kernels.conv3d import conv3x3x3, conv3x3x3_plain, conv_plan
@@ -134,8 +161,9 @@ def check_conv(level_shape, dev) -> dict:
     for level, cin, cout, count in CONV_CALLS:
         d, h, w = level_shape(level)
         err32 = None
-        for dtype, spatial in ((torch.float32, (40, 40, 40)), (torch.bfloat16, (d, h, w))):
-            x = torch.randn((1, *spatial, cin), generator=gen, device=dev).to(dtype)
+        for dtype, spatial, b_ in ((torch.float32, (40, 40, 40), 1),
+                                   (torch.bfloat16, (d, h, w), batch)):
+            x = torch.randn((b_, *spatial, cin), generator=gen, device=dev).to(dtype)
             wt = (torch.randn((3, 3, 3, cin, cout), generator=gen, device=dev)
                   / math.sqrt(27 * cin)).to(dtype)
             b = 0.1 * torch.randn((cout,), generator=gen, device=dev)
@@ -149,16 +177,16 @@ def check_conv(level_shape, dev) -> dict:
             if dtype != torch.bfloat16:
                 err32 = err
                 continue
-            m = d * h * w
+            m = batch * d * h * w
             ops = 2.0 * m * cout * 27 * cin
             nbytes = 2.0 * (m * cin + m * cout + 27 * cin * cout) + 4.0 * cout
             b_ms, _ = bound(ops, PEAK_BF16, nbytes)
             x_cl = x.permute(0, 4, 1, 2, 3)
             w_oi = wt.permute(4, 3, 0, 1, 2).contiguous()
             b_bf = b.to(dtype)
-            plan = conv_plan(1, d, h, w, cin, cout)
+            plan = conv_plan(batch, d, h, w, cin, cout)
             grid = [plan.bricks, plan.n_tiles, plan.splits]
-            row = dict(shape=[1, d, h, w, cin, cout], count=count, grid=grid, max_abs_err=err,
+            row = dict(shape=[batch, d, h, w, cin, cout], count=count, grid=grid, max_abs_err=err,
                        tolerance=tol, max_abs_err_fp32_40cubed=err32,
                        ms=time_ms(lambda: conv3x3x3(x, wt, b)),
                        plain_ms=time_ms(lambda: conv3x3x3_plain(x, wt, b)),
@@ -170,7 +198,7 @@ def check_conv(level_shape, dev) -> dict:
             total["ops_ms"] += count * ops / PEAK_BF16 * 1e3
             total["bytes_ms"] += count * nbytes / PEAK_BYTES * 1e3
             total["max_abs_err"] = max(total["max_abs_err"], err)
-            log(f"conv3x3x3 {cin}->{cout} at {d}x{h}x{w}: grid {plan.bricks} bricks x "
+            log(f"conv3x3x3 {cin}->{cout} at {batch}x{d}x{h}x{w}: grid {plan.bricks} bricks x "
                 f"{plan.n_tiles} N tiles of {plan.bn} x split-K {plan.splits}; err {err:.3g} "
                 f"(tol {tol:.3g}) kernel {row['ms']:.4f} ms, cuDNN {row['library_ms']:.4f} ms, "
                 f"bound {b_ms:.4f} ms ({100 * b_ms / row['ms']:.1f} %), "
@@ -179,9 +207,9 @@ def check_conv(level_shape, dev) -> dict:
     return dict(rows=rows, **total)
 
 
-def check_evonorm(level_shape, dev) -> dict:
-    """evonorm_s0 vs its plain version at the main path's shapes (bf16) and
-    on a 40³ block (fp32)."""
+def check_evonorm(level_shape, dev, batch: int = 1) -> dict:
+    """evonorm_s0 vs its plain version at the main path's shapes (bf16,
+    ``batch`` samples) and on a 40³ block (fp32)."""
     import torch
     from brats21_tpu_torch.ops.kernels.evonorm import evonorm_plan, evonorm_s0, evonorm_s0_plain
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -192,8 +220,9 @@ def check_evonorm(level_shape, dev) -> dict:
         gamma = 1.0 + 0.1 * torch.randn((c,), generator=gen, device=dev)
         beta = 0.1 * torch.randn((c,), generator=gen, device=dev)
         err32 = None
-        for dtype, spatial in ((torch.float32, (40, 40, 40)), (torch.bfloat16, (d, h, w))):
-            x = (0.5 + 2.0 * torch.randn((1, *spatial, c), generator=gen,
+        for dtype, spatial, b_ in ((torch.float32, (40, 40, 40), 1),
+                                   (torch.bfloat16, (d, h, w), batch)):
+            x = (0.5 + 2.0 * torch.randn((b_, *spatial, c), generator=gen,
                                          device=dev)).to(dtype)
             y = evonorm_s0(x, gamma, beta)
             ref = evonorm_s0_plain(x.float(), gamma, beta)
@@ -213,10 +242,10 @@ def check_evonorm(level_shape, dev) -> dict:
             if dtype != torch.bfloat16:
                 err32 = err
                 continue
-            m = d * h * w
+            m = batch * d * h * w
             b_ms, _ = bound(EVONORM_OPS * m * c, PEAK_FP32, 4.0 * m * c + 8.0 * c)
-            plan = evonorm_plan(1, m, c, x.element_size())
-            row = dict(shape=[1, d, h, w, c], count=count,
+            plan = evonorm_plan(batch, d * h * w, c, x.element_size())
+            row = dict(shape=[batch, d, h, w, c], count=count,
                        blocks=dict(stats=plan.blocks, apply=plan.apply_blocks),
                        channels_per_thread=plan.vec, max_abs_err=err,
                        tolerance=tol, max_abs_err_fp32_40cubed=err32,
@@ -229,7 +258,7 @@ def check_evonorm(level_shape, dev) -> dict:
             total["ops_ms"] += count * EVONORM_OPS * m * c / PEAK_FP32 * 1e3
             total["bytes_ms"] += count * (4.0 * m * c + 8.0 * c) / PEAK_BYTES * 1e3
             total["max_abs_err"] = max(total["max_abs_err"], err)
-            log(f"evonorm_s0 C={c} at {d}x{h}x{w}: grid {plan.blocks} stats / "
+            log(f"evonorm_s0 C={c} at {batch}x{d}x{h}x{w}: grid {plan.blocks} stats / "
                 f"{plan.apply_blocks} apply blocks, {plan.vec} channels a thread; "
                 f"err {err:.3g} kernel {row['ms']:.4f} ms, "
                 f"bound {b_ms:.4f} ms ({100 * b_ms / row['ms']:.1f} %), "
@@ -278,25 +307,98 @@ def check_tf32_off(cli: str) -> None:
         raise AssertionError(f"the {cli} CLI ran on the card with TF32 on")
 
 
+class Tally:
+    """The kernels' launch counters, read and zeroed by ``take`` (the EDT's
+    under its lock, since a loader thread may launch it while the main
+    thread reads); ``total`` keeps every launch taken since the tally was
+    made, which zeroes the counters."""
+
+    def __init__(self):
+        from brats21_tpu_torch.ops.kernels import conv3d, edt, evonorm
+        self.mods = dict(conv3x3x3=conv3d, evonorm_s0=evonorm, edt_envelope=edt)
+        self.total = dict.fromkeys(self.mods, 0)
+        self.take()
+        self.total = dict.fromkeys(self.mods, 0)
+
+    def take(self) -> dict:
+        taken = {}
+        for k, m in self.mods.items():
+            if hasattr(m, "take_launches"):
+                taken[k] = m.take_launches()
+            else:
+                taken[k], m.launches = m.launches, 0
+            self.total[k] += taken[k]
+        return taken
+
+
+class CaseProbe:
+    """Wraps ``Engine.eval_case`` for a CLI run: each case's launches (the
+    tally taken at the case's start and again at its end), its mode, its
+    padded shape and its seconds on the host clock, synchronised at both
+    ends (the forwards, losses and fusion; not the metrics and the save);
+    and each STAPLE channel's EM iterations and seconds."""
+
+    def __init__(self, tally: Tally):
+        import torch
+        from brats21_tpu_torch.learning.engine import Engine
+        from brats21_tpu_torch.ops import staple
+        self.cases = []
+        self.cls, self.orig = Engine, Engine.eval_case
+        self.staple, self.orig_staple = staple, staple.staple_binary
+        probe, staple_runs = self, []
+
+        def staple_binary(decisions, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = probe.orig_staple(decisions, *args, **kw)
+            torch.cuda.synchronize()
+            staple_runs.append(dict(iterations=staple.last_iterations,
+                                    seconds=time.time() - t0))
+            return out
+
+        def eval_case(engine, members, batch, use_tta=False, sliding=False, *args, **kw):
+            torch.cuda.synchronize()
+            tally.take()
+            staple_runs.clear()
+            t0 = time.time()
+            out = probe.orig(engine, members, batch, use_tta, sliding, *args, **kw)
+            torch.cuda.synchronize()
+            probe.cases.append(dict(
+                tta=bool(use_tta), sliding=bool(sliding), members=len(members),
+                padded=list(out["fused"].shape[1:4]), seconds=time.time() - t0,
+                launches=tally.take(), staple=list(staple_runs)))
+            return out
+
+        Engine.eval_case = eval_case
+        staple.staple_binary = staple_binary
+
+    def close(self) -> None:
+        self.cls.eval_case = self.orig
+        self.staple.staple_binary = self.orig_staple
+
+
 def run_cli(argv, dev) -> dict:
     """The inference CLI with the kernels' counters zeroed just before and
-    read just after."""
+    read just after, and each case's launches."""
     import torch
     from brats21_tpu_torch.cli.main_inference import main
-    from brats21_tpu_torch.ops.kernels import conv3d, edt, evonorm
-    mods = dict(conv3x3x3=conv3d, evonorm_s0=evonorm, edt_envelope=edt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     tf32_default()
-    for m in mods.values():
-        m.launches = 0
+    tally = Tally()
+    probe = CaseProbe(tally)
     t0 = time.time()
-    case_times = main(argv)
-    torch.cuda.synchronize()
+    try:
+        meters = main(argv)
+        torch.cuda.synchronize()
+    finally:
+        probe.close()
     wall = time.time() - t0
     check_tf32_off("inference")
-    counts = {k: m.launches for k, m in mods.items()}
-    return dict(wall_s=wall, case_s=case_times, launches=counts,
+    tally.take()
+    counts = dict(tally.total)
+    return dict(wall_s=wall, case_s=list(meters["batch_time"].history), launches=counts,
+                cases=probe.cases, loss=float(meters["loss"].avg),
                 peak_bytes=torch.cuda.max_memory_allocated(dev))
 
 
@@ -313,7 +415,8 @@ def stage_breakdown(model, data: Path, out: Path, dev) -> dict:
     from brats21_tpu_torch.learning.engine import Engine
     from brats21_tpu_torch.ops.postprocess import post_process
     cfg = argparse.Namespace(no_amp=False, num_classes=3, test_data_path=str(data),
-                             num_workers=0, cleaning_areas=True, replace_value=True)
+                             num_workers=0, cleaning_areas=True, replace_value=True,
+                             criterion="dice")
     engine = Engine(cfg, dev)
     stages = {}
     t = time.time()
@@ -330,7 +433,7 @@ def stage_breakdown(model, data: Path, out: Path, dev) -> dict:
         padded, p_b, p_a = engine._pad_case(batch["img"][0], False)
         img = torch.from_numpy(padded.astype(np.float16)).to(dev)[None]
         mark("pad_copy_in")
-        probs = engine.member_probs(model, img, False)
+        probs, _ = engine.member_probs(model, img)
         mark("forward_sigmoid")
         fused = post_process(probs, **post_kwargs_from_cfg(cfg))
         mark("post_process")
@@ -339,7 +442,7 @@ def stage_breakdown(model, data: Path, out: Path, dev) -> dict:
         mark("seal_copy_out")
         engine._save_segmentation(batch, fused_np[0], p_b, p_a, str(out))
         mark("unpad_uncrop_save")
-        forward_ms = time_ms(lambda: engine.member_probs(model, img, False), iters=3)
+        forward_ms = time_ms(lambda: engine.member_probs(model, img), iters=3)
     return dict(stages_s=stages, forward_ms=forward_ms)
 
 
@@ -359,12 +462,13 @@ def _edt_passes(mask, sampling):
     return passes
 
 
-def check_edt(dev) -> dict:
+def check_edt(dev, padded) -> dict:
     """The EDT envelope kernels (the mask pass and the general pass)
     against their plain version, the O(n²) scan, on every pass of edt_sq:
     bit for bit over the train step's masks (3×128³ and the step's one batch
-    of 12×128³), the full case's six masks (6×240×240×155) and hand-made
-    edge lines at unit sampling; within rtol 1e-6 over one 240×240×155
+    of 12×128³), the full case's six masks (6×240×240×155), the validation
+    loss's batch (12 masks of the ``padded`` case) and hand-made edge lines
+    at unit sampling; within rtol 1e-6 over one 240×240×155
     mask at sampling (1, 1, 1.5), where parabolas within an ulp may be
     chosen otherwise. Each shape's pass is timed beside its byte bound, the
     plain version and the old scan's bound; edt_sq against scipy on the
@@ -379,6 +483,7 @@ def check_edt(dev) -> dict:
     for shape, sampling, p_true in (((3, *PATCH), (1.0, 1.0, 1.0), 0.7),
                                     ((12, *PATCH), (1.0, 1.0, 1.0), 0.7),
                                     ((6, *CASE_SHAPE), (1.0, 1.0, 1.0), 0.9),
+                                    ((12, *padded), (1.0, 1.0, 1.0), 0.9),
                                     ((1, *CASE_SHAPE), (1.0, 1.0, 1.5), 0.9)):
         mask = torch.rand(shape, generator=gen, device=dev) < p_true
         exact = all(s == 1.0 for s in sampling)
@@ -427,18 +532,24 @@ def check_edt(dev) -> dict:
     if not np.allclose(got, want, rtol=1e-6, atol=1e-3):
         raise AssertionError(f"edt_sq vs scipy: max |err| {np.abs(got - want).max():.3g}")
     log(f"edt_sq 128³ vs scipy: max |err| {np.abs(got - want).max():.3g}")
+    def batch_sum(shape):
+        """One edt_sq's three passes over ``shape``."""
+        sel = [r for r in rows if r["shape"] == list(shape)]
+        return {k: sum(r[k] for r in sel)
+                for k in ("ms", "plain_ms", "bound_ms", "scan_bound_ms")}, sel[0]["bound_by"]
+
     # the train step's one EDT batch: 12 masks of 128³, three passes
-    step_rows = [r for r in rows if r["shape"][0] == 12]
-    per_step = {k: sum(r[k] for r in step_rows)
-                for k in ("ms", "plain_ms", "bound_ms", "scan_bound_ms")}
-    case_rows = [r for r in rows if r["shape"][0] == 6]
+    per_step, by = batch_sum((12, *PATCH))
+    full_case, _ = batch_sum((6, *CASE_SHAPE))
+    val_loss, _ = batch_sum((12, *padded))
     log(f"edt per train step (12×128³, 3 launches): kernel {per_step['ms']:.4f} ms, bound "
         f"{per_step['bound_ms']:.4f} ms; full case 6×240×240×155 edt_sq: kernel "
-        f"{sum(r['ms'] for r in case_rows):.4f} ms, bound "
-        f"{sum(r['bound_ms'] for r in case_rows):.4f} ms")
-    return dict(rows=rows, max_abs_err=max_err, bound_by=step_rows[0]["bound_by"],
-                full_case_ms=sum(r["ms"] for r in case_rows),
-                full_case_bound_ms=sum(r["bound_ms"] for r in case_rows), **per_step)
+        f"{full_case['ms']:.4f} ms, bound {full_case['bound_ms']:.4f} ms; validation "
+        f"loss batch 12×{'×'.join(map(str, padded))}: kernel {val_loss['ms']:.4f} ms, "
+        f"bound {val_loss['bound_ms']:.4f} ms, plain {val_loss['plain_ms']:.2f} ms")
+    return dict(rows=rows, max_abs_err=max_err, bound_by=by,
+                full_case_ms=full_case["ms"], full_case_bound_ms=full_case["bound_ms"],
+                val_loss_batch=val_loss, **per_step)
 
 
 def check_grads(dev) -> dict:
@@ -499,56 +610,42 @@ def check_grads(dev) -> dict:
 
 
 class StepProbe:
-    """Wraps TrainStep's two halves for the training phase: zeroes the
-    kernels' counters before each step's forward, reads them after it and
-    after the backward and optimizer step, and records CUDA events around
-    each step and the host clock at each step's start (the interval takes
-    in the loader's wait)."""
+    """Wraps TrainStep's two halves for the training phase: takes the
+    tally before each step's forward (what was launched since, by the
+    loader's threads or a val case, is the run's, not the step's), after
+    it and after the backward and optimizer step, and records CUDA events
+    around each step and the host clock at each step's start (the interval
+    takes in the loader's wait)."""
 
-    def __init__(self):
+    def __init__(self, tally: Tally):
         import torch
         from brats21_tpu_torch.learning.train_state import TrainStep
-        from brats21_tpu_torch.ops.kernels import conv3d, edt, evonorm
-        self.mods = dict(conv3x3x3=conv3d, evonorm_s0=evonorm, edt_envelope=edt)
+        self.tally = tally
         self.forward, self.backward, self.events, self.host_t = [], [], [], []
-        # launches made outside the steps' windows (the loader's threads)
-        self.carried = dict.fromkeys(self.mods, 0)
-        for m in self.mods.values():
-            self.take(m)
         self.cls = TrainStep
         self.orig = (TrainStep.forward_loss, TrainStep.backward_update)
         probe = self
 
         def forward_loss(step, state, img, target):
             probe.host_t.append(time.time())
-            for k, m in probe.mods.items():
-                probe.carried[k] += probe.take(m)
+            tally.take()
             start = torch.cuda.Event(enable_timing=True)
             start.record()
             out = probe.orig[0](step, state, img, target)
-            probe.forward.append({k: m.launches for k, m in probe.mods.items()})
+            probe.forward.append(tally.take())
             probe.events.append([start])
             return out
 
         def backward_update(step, state, loss):
-            before = {k: m.launches for k, m in probe.mods.items()}
+            tally.take()
             out = probe.orig[1](step, state, loss)
-            probe.backward.append({k: m.launches - before[k] for k, m in probe.mods.items()})
+            probe.backward.append(tally.take())
             end = torch.cuda.Event(enable_timing=True)
             end.record()
             probe.events[-1].append(end)
             return out
 
         TrainStep.forward_loss, TrainStep.backward_update = forward_loss, backward_update
-
-    @staticmethod
-    def take(mod) -> int:
-        """Read and zero a wrapper's count; the EDT's under its lock, since
-        the loader's threads launch it while a step runs."""
-        if hasattr(mod, "take_launches"):
-            return mod.take_launches()
-        taken, mod.launches = mod.launches, 0
-        return taken
 
     def close(self) -> None:
         self.cls.forward_loss, self.cls.backward_update = self.orig
@@ -558,38 +655,45 @@ class StepProbe:
 
     def total_launches(self) -> dict:
         """Every launch of the run: the steps' and those between them."""
-        return {k: self.carried[k] + m.launches for k, m in self.mods.items()}
+        self.tally.take()
+        return dict(self.tally.total)
 
 
-def run_training(data: Path, runs: Path, dev, criterion: str = "dice_hd") -> dict:
-    """The train CLI on the card, probed step by step; returns launches per
-    step and over the whole run, step times, the CLI wall, the peak memory
-    and the run directory."""
+def run_training(data: Path, runs: Path, dev, criterion: str = "dice_hd",
+                 extra=("--fold", "None")) -> dict:
+    """The train CLI on the card, probed step by step and val case by val
+    case; returns launches per step and over the whole run, each val
+    case's launches, step times, the CLI wall, the peak memory and the run
+    directory."""
     import statistics
 
     import torch
     from brats21_tpu_torch.cli.main_train import main as train_main
     argv = ["--train_data_path", str(data), "--save_path", str(runs), "--device", "0",
-            "--model", "equiunet_assp_evo", "--width", "48", "--criterion", criterion,
+            "--model", "equiunet_assp_evo", "--width", str(WIDTH), "--criterion", criterion,
             "--optimizer", "ranger", "--decay_type", "cosine", "--learning_rate", "3e-4",
-            "--use_gc", "--remove_outliers", "--fold", "None", "--epochs", "1",
-            "--num_workers", "2"]
+            "--use_gc", "--remove_outliers", "--epochs", "1", "--num_workers", "2",
+            "--patch_size", *map(str, PATCH), "--no_tensorboard", *extra]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     tf32_default()
-    probe = StepProbe()
+    tally = Tally()
+    probe = StepProbe(tally)
+    cases = CaseProbe(tally)
     t0 = time.time()
     try:
         result = train_main(argv)
         torch.cuda.synchronize()
     finally:
         probe.close()
+        cases.close()
     wall = time.time() - t0
     check_tf32_off("train")
     step_ms = probe.step_ms()
     run_dir, = [p for p in runs.iterdir() if p.is_dir()]
     host_ms = [1e3 * (b - a) for a, b in zip(probe.host_t, probe.host_t[1:])]
     return dict(result=result, wall_s=wall, steps=len(step_ms), step_ms=step_ms,
+                val_cases=cases.cases,
                 step_ms_median_after_first=statistics.median(step_ms[1:]),
                 host_interval_ms=host_ms,
                 forward_launches=probe.forward, backward_launches=probe.backward,
@@ -654,6 +758,110 @@ def train_step_breakdown(dev, iters: int = 9) -> dict:
     return out
 
 
+def check_report(path: Path, rows: int) -> list:
+    """An Evaluation report's CSV (and its xlsx beside it): ``rows`` rows,
+    every value finite, Dice in [0, 1] and HD95 ≥ 0 in every channel."""
+    import csv
+    with open(path) as f:
+        table = list(csv.reader(f))
+    if len(table) != rows + 1 or not path.with_suffix(".xlsx").exists():
+        raise AssertionError(f"{path.name}: {len(table) - 1} rows, want {rows}, and its xlsx")
+    for row in table[1:]:
+        for col, v in zip(table[0][1:], row[1:]):
+            v = float(v)
+            if not math.isfinite(v) or (col.startswith("Dice") and not 0 <= v <= 1) or (
+                    col.startswith("Hausdorff") and v < 0):
+                raise AssertionError(f"{path.name}: {row[0]} {col} = {v}")
+    log(f"{path.name}: " + json.dumps([dict(zip(table[0], r)) for r in table[1:]]))
+    return table
+
+
+def val_case_split(run_dir: Path, out: Path, dev) -> dict:
+    """Where one validation case's time goes (w48, bf16, dice_hd, the run's
+    ``best_model.pth``, its fold-0 val case), each stage ended by a
+    synchronise and timed on the host clock: the plain forward with its
+    deep heads, its loss and of that the EDT maps, post-process and brain
+    mask, Dice on the card, HD95 on the host, the report row, copy-out and
+    save; TTA's forwards without and with the target, and the sliding
+    window's forwards and loss. The peak memory of the plain forward with
+    its deep heads."""
+    import numpy as np
+    import torch
+    from brats21_tpu_torch.config import TrainConfig
+    from brats21_tpu_torch.data.pipeline import make_train_val_loaders
+    from brats21_tpu_torch.learning.engine import Engine, forward_channels_last
+    from brats21_tpu_torch.learning.losses import deep_supervision_loss, make_criterion
+    from brats21_tpu_torch.models import get_model
+    from brats21_tpu_torch.ops.postprocess import post_process
+    from brats21_tpu_torch.ops.sliding_window import sliding_window_inference
+    from brats21_tpu_torch.ops.tta import main_head, tree_map
+    from brats21_tpu_torch.utils.metrics import compute_case_metrics
+    from brats21_tpu_torch.utils.reporting import EvaluationReport
+    from brats21_tpu_torch.utils.weights import load_reference_pth
+    cfg = TrainConfig.from_yaml(str(run_dir / "config.yaml"))
+    model = get_model(cfg)
+    model.load_state_dict(load_reference_pth(str(run_dir / "best_model.pth")))
+    model = model.to(dev).eval()
+    criterion = make_criterion(cfg)
+    engine = Engine(cfg, dev, criterion=criterion)
+    batch = next(iter(make_train_val_loaders(cfg, dev)[1]))
+    stages = {}
+    t = time.time()
+
+    def mark(name):
+        nonlocal t
+        torch.cuda.synchronize()
+        stages[name] = time.time() - t
+        t = time.time()
+
+    with torch.inference_mode():
+        padded, p_b, p_a = engine._pad_case(batch["img"][0], False)
+        img = torch.from_numpy(padded.astype(np.float16)).to(dev)[None]
+        tgt_cl = torch.from_numpy(engine._pad_with(batch["seg"][0], p_b, p_a)).to(dev)[None]
+        tgt_cl = tgt_cl.float()
+        tgt = tgt_cl.permute(0, 4, 1, 2, 3)
+        mark("pad_copy_in")
+        torch.cuda.reset_peak_memory_stats(dev)
+        out_tree = forward_channels_last(model, img.to(torch.bfloat16), with_deep=True)
+        mark("forward_deep_heads")
+        peak = torch.cuda.max_memory_allocated(dev)
+        heads = tree_map(lambda h: h.permute(0, 4, 1, 2, 3), out_tree)
+        loss = deep_supervision_loss(criterion, heads, tgt)
+        mark("loss")
+        criterion.maps([heads[0]] + list(heads[1]), tgt)
+        mark("loss_edt_maps")
+        fused = post_process(torch.sigmoid(main_head(out_tree).float()))
+        fused = fused * (img != 0).any(dim=-1, keepdim=True).to(fused.dtype)
+        mark("post_process_brain_mask")
+        dice = compute_case_metrics(fused, tgt_cl, ["dice"])
+        mark("dice_on_card")
+        hd95 = compute_case_metrics(fused, tgt_cl, ["hausdorff_distance95"])
+        mark("hd95_on_host")
+        EvaluationReport().add(batch["patient_id"][0], {**dice, **hd95})
+        mark("report_row")
+        engine._save_segmentation(batch, fused[0].cpu().numpy(), p_b, p_a, str(out))
+        mark("copy_out_save")
+        # TTA and the sliding window, each after one untimed run (the
+        # permuted and windowed shapes' first use): TTA's 16 forwards
+        # without a target (main head only), then with it (deep heads and
+        # 16 losses); the sliding window's stitched logits, then their loss
+        for kw in (dict(use_tta=True), dict(sliding=True)):
+            engine.member_probs(model, img, **kw)
+        mark("warm_up_tta_sliding")
+        engine.member_probs(model, img, use_tta=True)
+        mark("tta_forward_no_target")
+        engine.member_probs(model, img, use_tta=True, target=tgt)
+        mark("tta_forward_deep_heads_loss")
+        logits = sliding_window_inference(img.to(torch.bfloat16), SW_ROI,
+                                          lambda w: forward_channels_last(model, w))
+        mark("sliding_forward")
+        deep_supervision_loss(criterion, logits.permute(0, 4, 1, 2, 3), tgt)
+        mark("sliding_loss")
+    return dict(stages_s=stages, loss=float(loss), dice=dice["Dice"].tolist(),
+                hd95=hd95["Hausdorff_Distance95"].tolist(),
+                forward_deep_heads_peak_bytes=peak)
+
+
 def check_segmentation(path: Path) -> None:
     import numpy as np
     from brats21_tpu_torch.data.nifti import read_nifti
@@ -665,6 +873,107 @@ def check_segmentation(path: Path) -> None:
         raise AssertionError(f"{path.name}: labels {sorted(labels)} not in {{0,1,2,4}}")
     log(f"{path.name}: shape {seg.shape}, labels {sorted(labels)}, "
         f"{int((seg > 0).sum())} tumour voxels")
+
+
+def validation_phase(work: Path, train_data: Path, extra_case: Path, dev) -> tuple:
+    """Phase 12: the train CLI with ``--fold 0 --val_frequency 1
+    --evaluate_end_training`` over phase 9's four cases and a fifth, with
+    its checks, then one val case's split. Returns the run, the split and
+    the data directory."""
+    import torch
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    val_data = work / "val_data"
+    val_data.mkdir()
+    for case in sorted(p for d in (train_data, extra_case) for p in d.iterdir()):
+        (val_data / case.name).symlink_to(case, target_is_directory=True)
+    val = run_training(val_data, work / "runs_val", dev, extra=(
+        "--fold", "0", "--val_frequency", "1", "--evaluate_end_training",
+        "--sliding_window_size", *map(str, SW_ROI)))
+    if val["steps"] != 4:
+        raise AssertionError(f"fold 0 of five cases ran {val['steps']} steps, not 4")
+    for i, fwd in enumerate(val["forward_launches"]):
+        if fwd != TRAIN_STEP_LAUNCHES:
+            raise AssertionError(f"validation run, train step {i}: forward launches {fwd}")
+    vres = val["result"]
+    if not math.isfinite(vres["val_loss"]) or vres["best_value"] != vres["val_loss"]:
+        raise AssertionError(f"validation loss {vres['val_loss']}, best {vres['best_value']}")
+    val_dir = Path(val["run_dir"])
+    if torch.load(val_dir / "best_model.pth", weights_only=True)["best_value"] != \
+            vres["val_loss"]:
+        raise AssertionError("best_model.pth was not written by the validation loss")
+    # the epoch's validation, then the end-of-training evaluation without and with TTA
+    if [c["tta"] for c in val["val_cases"]] != [False, False, True]:
+        raise AssertionError(f"val cases {val['val_cases']}")
+    for c in val["val_cases"]:
+        want_case = {k: (16 if c["tta"] else 1) * v for k, v in VAL_CASE_LAUNCHES.items()}
+        if c["launches"] != want_case:
+            raise AssertionError(f"val case (tta={c['tta']}): launches {c['launches']} != "
+                                 f"{want_case}")
+    for suffix in ("", "_tta"):
+        table = check_report(val_dir / f"Evaluation{suffix}.csv", rows=1)
+        check_segmentation(val_dir / f"segmentations{suffix}" / f"{table[1][0]}.nii.gz")
+    split = val_case_split(val_dir, work / "out_val_split", dev)
+    log(f"phase 12 validation: {val['steps']} steps, train loss "
+        f"{vres['train_loss']:.4f}, val loss {vres['val_loss']:.4f} (best_model.pth), end "
+        f"dice {vres['eval_dice']:.4f} / TTA {vres['eval_tta_dice']:.4f}; val cases "
+        f"{json.dumps(val['val_cases'])}; CLI wall {val['wall_s']:.1f}s, peak "
+        f"{val['peak_bytes'] / 2**30:.2f} GiB; one val case split {json.dumps(split)}; "
+        f"in {time.time() - t0:.1f}s")
+    return val, split, val_data
+
+
+def ensemble_phase(work: Path, run_dir: Path, other_run: Path, val_data: Path,
+                   dev) -> dict:
+    """Phase 13: the inference CLI ``--on val`` with the run's config and
+    two members of the same architecture and different weights: the run's
+    ``best_model.pth`` and another run's ``last_model.pth``. Sliding
+    windows, sliding × TTA, and STAPLE, each case's launches checked
+    against the members' forwards (the window batches from the case's own
+    padded shape) and losses; STAPLE's EM must iterate past its first step
+    on some channel, which it does only where the members disagree."""
+    import torch
+    from brats21_tpu_torch.ops.sliding_window import window_plan
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    ens = ["--config", str(run_dir / "config.yaml"), str(other_run / "config.yaml"),
+           "--import_pth", str(run_dir / "best_model.pth"), str(other_run / "last_model.pth"),
+           "--on", "val", "--train_data_path", str(val_data), "--device", "0",
+           "--sliding_window_size", *map(str, SW_ROI)]
+    ensemble = {}
+    for mode, flags in (("sliding", ["--sliding_window_inference"]),
+                        ("sliding_tta", ["--sliding_window_inference", "--tta"]),
+                        ("staple", ["--perform_staple"])):
+        out = work / f"out_{mode}"
+        run = run_cli(ens + flags + ["--output", str(out)], dev)
+        case, = run["cases"]
+        if mode == "staple":
+            member = dict(VAL_CASE_LAUNCHES)
+        else:
+            _, _, starts = window_plan(case["padded"], SW_ROI)
+            batches = -(-len(starts) // SW_BATCH)
+            member = dict(conv3x3x3=batches * 14, evonorm_s0=batches * 21, edt_envelope=3)
+            if mode == "sliding_tta":
+                member = {k: 16 * v for k, v in member.items()}
+            case["windows"], case["window_batches"] = len(starts), batches
+        want_case = {k: case["members"] * v for k, v in member.items()}
+        if case["members"] != 2 or case["launches"] != want_case or run["launches"] != \
+                want_case:
+            raise AssertionError(f"{mode}: {case['members']} members, case launches "
+                                 f"{case['launches']}, run {run['launches']}, want {want_case}")
+        if mode == "staple" and (len(case["staple"]) != 3 or max(
+                r["iterations"] for r in case["staple"]) < 2):
+            raise AssertionError(f"STAPLE over two members: {case['staple']}; the members "
+                                 f"agree everywhere, or a channel was not fused")
+        report, = out.glob("Evaluation_inference_val*.csv")
+        table = check_report(report, rows=1)
+        check_segmentation(out / "Inference_segmentations_val" / f"{table[1][0]}.nii.gz")
+        ensemble[mode] = run
+        log(f"phase 13 {mode}: case {run['case_s'][0]:.3f}s (members, losses and fusion "
+            f"{case['seconds']:.3f}s), loss {run['loss']:.4f}, CLI wall {run['wall_s']:.1f}s, "
+            f"peak {run['peak_bytes'] / 2**30:.2f} GiB, case {json.dumps(case)}")
+    log(f"phase 13 ensemble on the val case: {time.time() - t0:.1f}s")
+    return ensemble
 
 
 def main() -> int:
@@ -741,8 +1050,16 @@ def main() -> int:
     t0 = time.time()
     conv = check_conv(level_shape, dev)
     evo = check_evonorm(level_shape, dev)
+    # the sliding window's batches: 2 windows of 128³
+    conv_sw = check_conv(lambda level: tuple(s // 2 ** (level - 1) for s in SW_ROI), dev,
+                         batch=SW_BATCH)
+    evo_sw = check_evonorm(lambda level: tuple(s // 2 ** (level - 1) for s in SW_ROI), dev,
+                           batch=SW_BATCH)
     torch.cuda.empty_cache()
-    log(f"phase 2 kernels vs plain: {time.time() - t0:.1f}s")
+    log(f"phase 2 kernels vs plain: {time.time() - t0:.1f}s; per sliding-window batch "
+        f"(2×128³): conv {conv_sw['ms']:.3f} ms (bound {conv_sw['bound_ms']:.3f}, cuDNN "
+        f"{conv_sw['library_ms']:.3f}), EvoNorm {evo_sw['ms']:.3f} ms (bound "
+        f"{evo_sw['bound_ms']:.3f})")
 
     # 3. whole model, card vs CPU
     t0 = time.time()
@@ -788,7 +1105,7 @@ def main() -> int:
 
     # 7. the EDT envelope kernel vs its plain version
     t0 = time.time()
-    edt_res = check_edt(dev)
+    edt_res = check_edt(dev, padded)
     torch.cuda.empty_cache()
     log(f"phase 7 EDT kernel vs plain: {time.time() - t0:.1f}s")
 
@@ -805,11 +1122,12 @@ def main() -> int:
     # 9. the training path through the CLI, then the trained weights served
     t0 = time.time()
     train_data = work / "train_data"
-    with ThreadPoolExecutor(4) as pool:
+    extra_case = work / "extra_case"     # phase 12's fifth case
+    with ThreadPoolExecutor(5) as pool:
         list(pool.map(lambda i: generate_synthetic_dataset(
-            str(train_data), num_cases=1, shape=CASE_SHAPE, seed=SEED + 10, first_case=i),
-            range(4)))
-    log(f"phase 9 data: 4 cases of {CASE_SHAPE} in {time.time() - t0:.1f}s")
+            str(train_data if i < 4 else extra_case), num_cases=1, shape=CASE_SHAPE,
+            seed=SEED + 10, first_case=i), range(5)))
+    log(f"phase 9 data: 5 cases of {CASE_SHAPE} in {time.time() - t0:.1f}s")
     train = run_training(train_data, work / "runs", dev)
     if train["steps"] < 4:
         raise AssertionError(f"training ran {train['steps']} steps, not 4")
@@ -880,6 +1198,15 @@ def main() -> int:
         f"{EDT_LAUNCHES_PER_LOADED_CASE} a case), per step {boundary['forward_launches'][0]} "
         f"forward, {boundary['backward_launches'][0]} backward; in {time.time() - t0:.1f}s")
 
+    # 12. validation through the train CLI, then one val case's split
+    val, val_split, val_data = validation_phase(work, train_data, extra_case, dev)
+
+    # 13. the inference CLI on the val case with a two-member ensemble
+    # (phase 11's run: the same w48 architecture, other weights)
+    ensemble = ensemble_phase(work, Path(val["run_dir"]), Path(boundary["run_dir"]),
+                              val_data, dev)
+
+    sliding_case, = ensemble["sliding"]["cases"]
     kernel_rows = []
     for name, route, source, replaces, tolerance, res, res_train, ms_per in (
             ("conv3x3x3", "cuda", "brats21_tpu_torch/csrc/conv3x3x3.cu",
@@ -902,8 +1229,13 @@ def main() -> int:
                    bound_by=res.get("bound_by") or (
                        "operations" if res["ops_ms"] >= res["bytes_ms"] else "bytes"),
                    library_ms=res.get("library_ms"), ms_per=ms_per,
-                   launches_by_path=dict(inference_case=main_run["launches"][name],
-                                         train_step=train_launches[name]),
+                   launches_by_path=dict(
+                       inference_case=main_run["launches"][name],
+                       train_step=train_launches[name],
+                       val_case=val["val_cases"][0]["launches"][name],
+                       val_case_tta=val["val_cases"][2]["launches"][name],
+                       sliding_window_case=sliding_case["launches"][name]
+                       // sliding_case["members"]),
                    shapes=res["rows"])
         if "scan_bound_ms" in res:
             row["scan_bound_ms"] = res["scan_bound_ms"]
@@ -913,15 +1245,20 @@ def main() -> int:
         if res_train is not None:
             row["train_step_shapes"] = {k: res_train[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "rows") if k in res_train}
+            res_sw = conv_sw if name == "conv3x3x3" else evo_sw
+            row["sliding_window_batch_shapes"] = {k: res_sw[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "rows") if k in res_sw}
+        else:
+            row["val_loss_batch"] = res["val_loss_batch"]
         kernel_rows.append(row)
-    for run in (train, boundary):
+    for run in (train, boundary, val):
         run.pop("forward_launches")
         run.pop("backward_launches")
     summary = dict(card=card, padded_case=list(padded), main_path=main_run,
                    tta=tta_run, stages=breakdown, grads_max_abs_err=grads, train=train,
                    trained_served=served, train_step_split_ms=step_split,
-                   boundary=boundary,
-                   total_s=time.time() - t_start)
+                   boundary=boundary, validation=val, val_case_split=val_split,
+                   ensemble=ensemble, total_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": kernel_rows}))

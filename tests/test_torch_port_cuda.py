@@ -3,8 +3,9 @@ against its plain PyTorch version on the same CUDA tensors, at ragged
 shapes the main path's level sizes do not reach (odd H/W, C_in = 4, C_out
 not a multiple of the tile; EDT lines of odd length, longer than a block,
 on every axis, and hand-made edge lines), the EDT mask pass, the batched
-HD loss and the loader's distance map, and the trainable conv / EvoNorm
-against autograd of their plain versions. Marked ``cuda``: without a card every test
+HD loss and the loader's distance map, the trainable conv / EvoNorm
+against autograd of their plain versions, and the sliding window and a
+dice_hd validation loss on the card against the CPU. Marked ``cuda``: without a card every test
 skips. On a machine with one, from the repository root:
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
@@ -351,3 +352,68 @@ def test_distance_map_on_card_equals_cpu(dev):
     got = compute_distance_map_fn(seg, dev)
     assert edt.launches == before + 3
     np.testing.assert_array_equal(got, compute_distance_map_fn(seg, "cpu"))
+
+
+def _model_pair(dev, seed):
+    torch.manual_seed(seed)
+    cpu = get_model({"model": "equiunet_assp_evo", "width": 8}).eval()
+    card = get_model({"model": "equiunet_assp_evo", "width": 8}).eval()
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card.to(dev)
+
+
+def test_sliding_window_on_card_matches_cpu(dev):
+    """Stitched logits of a w8 EquiUnetASSPEvo (fp32) over 16³ windows of a
+    40×24×12 volume (Z below the roi; 3×2×1 windows, three batches of two):
+    the card within 1e-3 of the CPU, one forward of 14 conv and 21 EvoNorm
+    launches a batch."""
+    from brats21_tpu_torch.learning.engine import forward_channels_last
+    from brats21_tpu_torch.ops.sliding_window import sliding_window_inference, window_plan
+    cpu, card = _model_pair(dev, 1)
+    x = torch.randn((1, 40, 24, 12, 4), generator=torch.Generator().manual_seed(2))
+    _, _, starts = window_plan((40, 24, 12), (16, 16, 16))
+    batches = -(-len(starts) // 2)
+    with torch.inference_mode():
+        want = sliding_window_inference(x, (16, 16, 16),
+                                        lambda w: forward_channels_last(cpu, w), 2)
+        c0, e0 = conv3d.launches, evonorm.launches
+        got = sliding_window_inference(x.to(dev), (16, 16, 16),
+                                       lambda w: forward_channels_last(card, w), 2)
+    assert (conv3d.launches - c0, evonorm.launches - e0) == (14 * batches, 21 * batches)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
+
+
+def test_dice_hd_validation_loss_on_card_matches_cpu(dev):
+    """``Engine.member_probs`` with a target (w8, fp32, dice_hd, 32×32×16):
+    the forward with its deep heads and the loss's one EDT batch on the
+    card (14 / 21 / 3 launches) against the CPU. The probabilities within
+    1e-3 (the forward's tolerance above); the loss within 1e-3 relative,
+    since the fp32 logits differ by summation order and may move a voxel of
+    a head's one-hot and with it its distance map. The loss of the CPU's
+    own outputs taken on the card is held to 1e-5 relative, as
+    test_hd_loss_on_card_matches_cpu holds the loss alone."""
+    from brats21_tpu_torch.config import TrainConfig
+    from brats21_tpu_torch.learning.engine import Engine, _ncdhw, forward_channels_last
+    from brats21_tpu_torch.learning.losses import deep_supervision_loss, make_criterion
+    cfg = TrainConfig(model="equiunet_assp_evo", width=8, criterion="dice_hd", no_amp=True)
+    cpu, card = _model_pair(dev, 3)
+    gen = torch.Generator().manual_seed(4)
+    img = torch.randn((1, 32, 32, 16, 4), generator=gen)
+    seg = (torch.rand((1, 32, 32, 16, 3), generator=gen) > 0.7).float()
+    target = seg.permute(0, 4, 1, 2, 3)
+    criterion = make_criterion(cfg)
+    with torch.inference_mode():
+        want_p, want_l = Engine(cfg, torch.device("cpu"), criterion).member_probs(
+            cpu, img, target=target)
+        counts = (conv3d.launches, evonorm.launches, edt.launches)
+        got_p, got_l = Engine(cfg, dev, criterion).member_probs(
+            card, img.to(dev), target=target.to(dev))
+        assert (conv3d.launches - counts[0], evonorm.launches - counts[1],
+                edt.launches - counts[2]) == (14, 21, 3)
+        torch.testing.assert_close(got_p.cpu(), want_p, atol=1e-3, rtol=1e-3)
+        assert abs(got_l.item() - want_l.item()) <= 1e-3 * abs(want_l.item())
+        outputs = forward_channels_last(cpu, img, with_deep=True)
+        on_card = deep_supervision_loss(
+            criterion, _ncdhw(tuple([outputs[0].to(dev), [d.to(dev) for d in outputs[1]]])),
+            target.to(dev))
+    assert abs(on_card.item() - want_l.item()) <= 1e-5 * abs(want_l.item())

@@ -74,20 +74,12 @@ def test_cli_needs_cuda_unless_asked_for_cpu(served_run, tmp_path):
         port_infer_main(_argv(served_run, tmp_path / "out"))
 
 
-@pytest.mark.parametrize("flag,match", [
-    (["--sliding_window_inference"], "sliding"),
-    (["--perform_staple"], "staple"),
-    (["--watch"], "watch")])
-def test_unported_flags_raise(served_run, tmp_path, flag, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("flag", [["--watch"], ["--watch_warmup", "8", "8", "8"],
+                                  ["--watch_stop_file", "stop"]])
+def test_unported_flags_raise(served_run, tmp_path, flag):
+    """``--watch`` serving is not ported: its flags parse and raise."""
+    with pytest.raises(NotImplementedError, match="watch"):
         port_infer_main(_argv(served_run, tmp_path / "out", "--device", "cpu", *flag))
-
-
-def test_on_val_raises(served_run, tmp_path):
-    argv = _argv(served_run, tmp_path / "out", "--device", "cpu")
-    argv[argv.index("test")] = "val"
-    with pytest.raises(NotImplementedError, match="--on val"):
-        port_infer_main(argv)
 
 
 def test_port_imports_no_jax():

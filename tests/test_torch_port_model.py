@@ -13,7 +13,7 @@ import jax.numpy as jnp
 from brats21_tpu.models import get_model as jax_get_model
 from brats21_tpu.ops.tta import tta_mean_probs as jax_tta_mean_probs
 from brats21_tpu.utils.import_torch import state_dict_to_flax
-from brats21_tpu_torch.learning.engine import forward_main_head
+from brats21_tpu_torch.learning.engine import forward_channels_last
 from brats21_tpu_torch.models import get_model
 from brats21_tpu_torch.ops.tta import COMBOS, tta_mean_probs
 from brats21_tpu_torch.utils.weights import load_reference_pth, state_dict_from_flax
@@ -130,8 +130,9 @@ def test_tta_mean_probs_matches_jax(jax_pair, port_model):
         lambda v: model.apply({"params": params}, v, deterministic=True),
         jnp.asarray(x))
     with torch.inference_mode():
-        got = tta_mean_probs(lambda v: forward_main_head(port_model, v),
-                             torch.from_numpy(x))
+        got, loss = tta_mean_probs(lambda v: forward_channels_last(port_model, v),
+                                   torch.from_numpy(x))
+    assert float(loss) == 0.0
     assert got.dtype == torch.float32 and got.shape == (1, 24, 24, 16, 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3, rtol=0)
 

@@ -436,34 +436,6 @@ def test_train_cli_needs_cuda_unless_asked_for_cpu(train_data, tmp_path):
         train_main(_train_argv(train_data, tmp_path / "runs"))
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--fold", "0", "--epochs", "3"], "validates every 3 epochs"),
-    (["--evaluate_end_training"], "evaluate_end_training"),
-    (["--val_data_path", "."], "val_data_path"),
-    (["--only_evaluate", "--resume", "."], "only_evaluate")])
-def test_validation_reaching_runs_raise_before_any_step(train_data, tmp_path,
-                                                        monkeypatch, extra, match):
-    from brats21_tpu_torch.cli import main_train
-    from brats21_tpu_torch.learning.engine import Engine
-
-    def no_step(*_a, **_k):
-        raise AssertionError("a step ran")
-
-    monkeypatch.setattr(Engine, "train_epoch", no_step)
-    monkeypatch.setattr(main_train, "get_train_args",
-                        lambda argv: _fake_resume(argv, train_data))
-    with pytest.raises(NotImplementedError, match=match):
-        main_train.main(_train_argv(train_data, tmp_path / "runs", "--device", "cpu",
-                                    *extra))
-
-
-def _fake_resume(argv, data):
-    """get_train_args without the resume reload (no run exists here)."""
-    from brats21_tpu_torch.cli.arguments import build_train_parser
-    from brats21_tpu_torch.config import TrainConfig
-    return TrainConfig.from_dict(vars(build_train_parser().parse_args(argv)))
-
-
 def test_train_parser_accepts_the_reference_flags():
     from test_cli_surface import REFERENCE_TRAIN_FLAGS
     from brats21_tpu_torch.cli.arguments import build_train_parser
