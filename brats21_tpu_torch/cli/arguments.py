@@ -1,8 +1,9 @@
 """Argparse surfaces with the JAX package's flag names and defaults: train
 (reference src/arguments_train.py:16-223) parsing into a TrainConfig, and
 inference (src/arguments_inference.py:18-156) parsing into per-member
-config namespaces. Weights come from reference ``.pth`` files through
-``--import_pth``."""
+config namespaces. Weights are reference-format ``.pth`` files: the run
+directory's own (``best_model.pth``, or ``last_model.pth``'s SWA average),
+or those ``--import_pth`` names."""
 
 from __future__ import annotations
 
@@ -160,19 +161,20 @@ def build_inference_parser() -> argparse.ArgumentParser:
     g.add_argument("--num_workers", type=int, default=0)
     g.add_argument("-v", "--verbosity", action="count", default=0)
     g.add_argument("--watch", action="store_true", default=False,
-                   help="serve mode: keep polling the input directory "
-                        "(not ported yet)")
+                   help="serve mode (with --on test): keep polling the input "
+                        "directory and segment the cases that land in it")
     g.add_argument("--watch_interval", type=float, default=5.0,
-                   help="poll period in seconds for --watch (not ported yet)")
+                   help="poll period in seconds for --watch")
     g.add_argument("--watch_stop_file", type=str, default=None,
-                   help="exit the --watch loop when this file appears "
-                        "(not ported yet)")
+                   help="exit the --watch loop when this file appears")
     g.add_argument("--watch_warmup", type=int, nargs=3, default=None,
                    metavar=("X", "Y", "Z"),
-                   help="warm-up case shape for --watch (not ported yet)")
+                   help="--watch: before serving, build the kernels and run "
+                        "one synthetic case of this cropped shape")
     g.add_argument("--import_pth", type=str, nargs="+", default=None,
                    help="reference torch checkpoint(s) (.pth) to serve, one "
-                        "per --config")
+                        "per --config (default: each config's folder's "
+                        "best_model.pth, or last_model.pth on SWA runs)")
 
     g = parser.add_argument_group("processing", "Processing configuration")
     g.add_argument("--sliding_window_inference", action="store_true",
@@ -194,7 +196,8 @@ def build_inference_parser() -> argparse.ArgumentParser:
 
 def get_inference_args(argv=None) -> Tuple[Dict[str, argparse.Namespace], str]:
     """arguments_inference.py:74-156: merge each trained config.yaml with CLI
-    overrides into {config_i: Namespace}, one ``--import_pth`` per config."""
+    overrides into {config_i: Namespace}, one ``--import_pth`` per config;
+    without ``--import_pth`` each config's folder must hold a checkpoint."""
     parser = build_inference_parser()
     args = parser.parse_args(argv)
 
@@ -217,6 +220,9 @@ def get_inference_args(argv=None) -> Tuple[Dict[str, argparse.Namespace], str]:
     config_dict: Dict[str, argparse.Namespace] = {}
     for idx, config_file in enumerate(args.config):
         folder = os.path.dirname(os.path.abspath(config_file))
+        if args.import_pth is None and not any(
+                "best_model" in d or "last_model" in d for d in os.listdir(folder)):
+            raise FileNotFoundError(f"No checkpoint found in {folder}")
         with open(config_file) as f:
             loaded = yaml.safe_load(f)
         keep = {k: deepcopy(loaded.get(k)) for k in
@@ -225,6 +231,8 @@ def get_inference_args(argv=None) -> Tuple[Dict[str, argparse.Namespace], str]:
         for k, v in keep.items():
             if loaded[k] is None:
                 loaded[k] = v
+        loaded["no_tensorboard"] = True
+        loaded["log_val_interval"] = 1
         loaded["config"] = config_file
         loaded["model_dir"] = folder
         loaded["import_pth"] = (args.import_pth[idx]

@@ -134,6 +134,9 @@ def main(argv=None) -> Dict[str, float]:
                              key_metric=cfg.key_metric[0])
     if payload is not None:
         resume(state, payload)
+        # the epochs before start_epoch ran whole; the "+ resume_batch" term
+        # of JAX main_train.py:170-171 comes with preemption's batch cursor
+        engine.global_step = (start_epoch - 1) * steps_per_epoch
         ckpt.best_value = float(payload["best_value"])
         logger.info("resumed from %s at epoch %d (best %s)", cfg.resume,
                     start_epoch - 1, ckpt.best_value)

@@ -4,9 +4,10 @@
 preprocessing and the train augmentations run in background threads while
 the card computes the previous step or case; batches are numpy arrays that
 the engine copies to the device. The boundary criteria's distance maps are
-made on the run's device. The split follows definer.py:583-628
-(KFold(5, shuffle, seed)). The native (ctypes) loader and multi-host
-striping come with later slices.
+made on the run's device. A case decodes through the native C++ loader
+(``data/native.py``) and falls back to the numpy path without it. The split
+follows definer.py:583-628 (KFold(5, shuffle, seed)). Multi-host striping
+comes with a later slice.
 """
 
 from __future__ import annotations
@@ -23,8 +24,10 @@ from .. import get_logger
 from .discovery import (MODALITIES, MODALITIES_WITH_SEG, create_database,
                         create_database_test_docker, kfold_split,
                         make_file_records)
+from . import native
 from .nifti import read_nifti
-from .transforms import augment_train_sample, preprocess_case
+from .transforms import (augment_train_sample, brats_labels_to_multichannel,
+                         compute_distance_map_fn, preprocess_case)
 
 logger = get_logger("data")
 
@@ -45,10 +48,11 @@ def load_case(record: Dict[str, Any]) -> Tuple[np.ndarray, Optional[np.ndarray],
 
 
 class BraTSDataset:
-    """Lazy per-case dataset: record → preprocessed sample dict (numpy
-    path of the JAX package's dataset). Eval datasets normalize at load;
-    train datasets load raw (``normalize=False``) and the loader normalizes
-    after the augmentations (definer.py:458-468). With
+    """Lazy per-case dataset: record → preprocessed sample dict, on the
+    native loader's path, else (and always with ``already_preprocess``) on
+    the numpy path, as the JAX package's dataset. Eval datasets normalize
+    at load; train datasets load raw (``normalize=False``) and the loader
+    normalizes after the augmentations (definer.py:458-468). With
     ``compute_distance_map`` (the boundary criteria's eval datasets) each
     sample carries the seg's distance map, made on ``device``, which it
     then needs."""
@@ -74,6 +78,16 @@ class BraTSDataset:
 
     def __getitem__(self, idx: int) -> Dict[str, Any]:
         record = self.records[idx]
+        sample = None
+        if not self.already_preprocess:
+            sample = self._getitem_native(record)
+            native.count(sample is not None)
+        if sample is None:
+            sample = self._getitem_numpy(record)
+        sample["patient_id"] = record["patient_id"]
+        return sample
+
+    def _getitem_numpy(self, record: Dict[str, Any]) -> Dict[str, Any]:
         img, seg, affine = load_case(record)
         if not self.with_seg:
             seg = None
@@ -85,7 +99,24 @@ class BraTSDataset:
             sample = preprocess_case(img, seg, remove_outliers=self.remove_outliers,
                                      crop=self.crop, normalize=self.normalize, **dm)
         sample["affine"] = affine
-        sample["patient_id"] = record["patient_id"]
+        return sample
+
+    def _getitem_native(self, record: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        """The C++ path (``csrc/nifti_native.cc``): decode, crop and
+        normalise in one call; the seg stays on numpy, cropped to the
+        library's bounding box. None when the library is unavailable or
+        the load fails."""
+        sample = native.load_case_native(record["img"], crop=self.crop,
+                                         normalize=self.normalize,
+                                         remove_outliers=self.remove_outliers)
+        if sample is None or not (self.with_seg and "seg" in record):
+            return sample
+        start, end = sample["foreground_start_coord"], sample["foreground_end_coord"]
+        seg_mc = brats_labels_to_multichannel(np.asarray(read_nifti(record["seg"]).data))
+        seg_mc = seg_mc[start[0]:end[0], start[1]:end[1], start[2]:end[2]]
+        sample["seg"] = seg_mc
+        if self.compute_distance_map:
+            sample["distance_map"] = compute_distance_map_fn(seg_mc, self.device)
         return sample
 
 

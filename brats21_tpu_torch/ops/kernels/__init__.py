@@ -5,7 +5,8 @@ the same function, and a ``launches`` counter. A wrapper given a CPU tensor
 runs the plain version; given a CUDA tensor it launches the kernel or
 raises. CUDA C++ sources (``csrc/*.cu``) are compiled at first use with
 ``nvcc`` into a shared library with a plain C interface under
-``brats21_tpu_torch/_build/`` and bound with ``ctypes``.
+``brats21_tpu_torch/_build/`` and bound with ``ctypes``; the native case
+loader (``data/native.py``) builds its host C++ source the same way.
 """
 
 from __future__ import annotations
@@ -16,9 +17,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -41,53 +43,96 @@ def find_nvcc() -> str:
         "PATH to build the port's CUDA kernels")
 
 
-def library_path(source: str) -> Path:
+def library_path(source: str, key: Sequence[str] = NVCC_FLAGS) -> Path:
     """Build output for ``csrc/<source>``, named by a hash of the source and
-    the flags so a changed kernel is never served from a stale build."""
+    the build's ``key`` (its flags; a host compiler's name too) so a changed
+    source is never served from a stale build."""
     text = (CSRC_DIR / source).read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(text + " ".join(key).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+
+
+def _key(compiler: Optional[str], flags: Sequence[str], libs: Sequence[str]) -> tuple:
+    return (*flags, *libs) if compiler is None else (compiler, *flags, *libs)
 
 
 @dataclass
 class Build:
-    """An ``nvcc`` run writing ``tmp``, renamed to ``out`` when it succeeds."""
+    """A compiler run writing ``tmp``, renamed to ``out`` when it succeeds."""
 
     proc: "subprocess.Popen[str]"
     tmp: Path
     out: Path
 
 
-def start_build(source: str) -> Optional[Build]:
-    """Start ``nvcc`` on ``csrc/<source>`` in the background, or return None
-    when the library is already built. :func:`finish_build` waits."""
-    out = library_path(source)
+def start_build(source: str, compiler: Optional[str] = None,
+                flags: Sequence[str] = NVCC_FLAGS, libs: Sequence[str] = ()
+                ) -> Optional[Build]:
+    """Start ``compiler`` (``nvcc`` when None) on ``csrc/<source>`` in the
+    background, or return None when the library is already built.
+    :func:`finish_build` waits. The output is written under a name of this
+    process and thread and renamed into place, so concurrent builds of one
+    library (test workers, loader threads) never see a partial file."""
+    out = library_path(source, _key(compiler, flags, libs))
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+    tmp = out.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
+    cmd = [compiler or find_nvcc(), *flags, "-o", str(tmp), str(CSRC_DIR / source), *libs]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return Build(proc, tmp, out)
 
 
 def finish_build(build: Optional[Build]) -> str:
-    """Wait for a build from :func:`start_build`; return nvcc's output
-    (the ``-Xptxas -v`` resource report) or raise with it on failure."""
+    """Wait for a build from :func:`start_build`; return the compiler's
+    output (nvcc's ``-Xptxas -v`` resource report) or raise with it on
+    failure."""
     if build is None:
         return ""
     log, _ = build.proc.communicate()
     if build.proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({build.proc.returncode}) on {build.out.name}:\n{log}")
+        build.tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{Path(build.proc.args[0]).name} failed "
+                           f"({build.proc.returncode}) on {build.out.name}:\n{log}")
     os.replace(build.tmp, build.out)
     build.out.with_suffix(".log").write_text(log)
     return log
 
 
+def build_library(source: str, compiler: Optional[str] = None,
+                  flags: Sequence[str] = NVCC_FLAGS, libs: Sequence[str] = ()) -> Path:
+    """Build ``csrc/<source>`` if needed; its shared library's path."""
+    finish_build(start_build(source, compiler, flags, libs))
+    return library_path(source, _key(compiler, flags, libs))
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(source: str) -> ctypes.CDLL:
     """Build (if needed) and load the shared library of ``csrc/<source>``."""
-    finish_build(start_build(source))
-    return ctypes.CDLL(str(library_path(source)))
+    return ctypes.CDLL(str(build_library(source)))
+
+
+#: the CUDA sources of the kernels, one library each
+SOURCES = ("conv3x3x3.cu", "evonorm_s0.cu", "edt_envelope.cu")
+
+
+def warm_up(device) -> None:
+    """Build every kernel library that is not built yet (one ``nvcc`` each,
+    all started together), then launch each kernel once on ``device`` and
+    wait for it: a build or launch failure raises here, not at a case."""
+    import torch
+
+    from .conv3d import conv3x3x3
+    from .edt import envelope
+    from .evonorm import evonorm_s0
+    builds = [start_build(src) for src in SOURCES]
+    for build in builds:
+        finish_build(build)
+    conv3x3x3(torch.ones((1, 2, 2, 2, 8), device=device, dtype=torch.bfloat16),
+              torch.ones((3, 3, 3, 8, 8), device=device, dtype=torch.bfloat16),
+              torch.zeros(8, device=device))
+    evonorm_s0(torch.ones((1, 2, 2, 2, 8), device=device), torch.ones(8, device=device),
+               torch.zeros(8, device=device))
+    envelope(torch.zeros((2, 8), device=device))
+    torch.cuda.synchronize(device)

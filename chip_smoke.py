@@ -60,7 +60,26 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     launches a case are checked (a member: 14 / 21 a window batch, the
     batches counted from ``dense_patch_starts`` of the case's padded
     shape, and 3 EDT launches for its loss); STAPLE's EM iterations and
-    seconds a channel are printed, and it must iterate past its first step.
+    seconds a channel are printed, and it must iterate past its first step;
+14. the Dockerfile's command: the inference CLI with the ENTRYPOINT's flags
+    (``--on test --docker_test --tta --replace_value`` 300
+    ``--cleaning_areas`` 20) and only ``--config`` of phase 12's run, no
+    ``--import_pth``, on one flat case folder: its label map must equal
+    the same run served with ``--import_pth`` of its ``best_model.pth``,
+    voxel for voxel, with 224 / 336 / 0 launches a case;
+15. ``--watch`` serving: a server thread with ``--watch_warmup`` at the
+    cropped shape of the cases, ``--watch_interval 0.5`` and a stop file, on
+    an empty folder; after its warm-up two w48 cases land one after the
+    other (written elsewhere, renamed in), then a corrupt one: both are
+    segmented (14 / 21 / 0 launches each), the first within 1.5× the
+    second's seconds, and the corrupt case is quarantined after
+    ``BRATS21_WATCH_MAX_ATTEMPTS`` (3) attempts.
+
+Phase 1 also builds the native case loader (``csrc/nifti_native.cc``, g++);
+phase 6 times decode + crop + normalise on its path and on the numpy path
+on the same case, and every case that phases 4-14 load must go through it,
+with no fallback to the numpy path; phase 15 counts its loads and the
+corrupt case's fallbacks exactly.
 
 Phases 2 and 7 also hold the conv and EvoNorm at the sliding window's
 batches (2 × 128³) and the EDT on the validation loss's batch (12 masks of
@@ -444,6 +463,32 @@ def stage_breakdown(model, data: Path, out: Path, dev) -> dict:
         mark("unpad_uncrop_save")
         forward_ms = time_ms(lambda: engine.member_probs(model, img), iters=3)
     return dict(stages_s=stages, forward_ms=forward_ms)
+
+
+def decode_paths(data: Path, repeats: int = 3) -> dict:
+    """Decode + crop + normalise of the served case on the native loader's
+    path and on the numpy path, in turns (native first, then numpy first,
+    ...), host clock; and the largest difference of their images."""
+    import numpy as np
+    from brats21_tpu_torch.data.discovery import create_database, make_file_records
+    from brats21_tpu_torch.data.pipeline import BraTSDataset
+    rec, = make_file_records(create_database(str(data)), with_seg=False)
+    ds = BraTSDataset([rec], with_seg=False)
+    paths = dict(native=ds._getitem_native, numpy=ds._getitem_numpy)
+    times, images = dict(native=[], numpy=[]), {}
+    for i in range(repeats):
+        for name in (("native", "numpy") if i % 2 == 0 else ("numpy", "native")):
+            t = time.time()
+            sample = paths[name](rec)
+            times[name].append(time.time() - t)
+            if sample is None:
+                raise AssertionError("the native loader failed on the served case")
+            images[name] = sample["img"]
+    err = float(np.abs(images["native"] - images["numpy"]).max())
+    if images["native"].shape != images["numpy"].shape or not err <= 1e-4:
+        raise AssertionError(f"native vs numpy decode: shapes {images['native'].shape} / "
+                             f"{images['numpy'].shape}, max |err| {err:.3g} > 1e-4")
+    return dict(native_s=times["native"], numpy_s=times["numpy"], max_abs_err=err)
 
 
 def _edt_passes(mask, sampling):
@@ -976,6 +1021,145 @@ def ensemble_phase(work: Path, run_dir: Path, other_run: Path, val_data: Path,
     return ensemble
 
 
+def docker_phase(work: Path, run_dir: Path, case_dir: Path, dev) -> dict:
+    """Phase 14: the Dockerfile's ENTRYPOINT flags with only ``--config``
+    of a run directory, against the same run served with ``--import_pth``
+    of its ``best_model.pth``: equal label maps, 224 / 336 / 0 launches a
+    case."""
+    import numpy as np
+    from brats21_tpu_torch.data.nifti import read_nifti
+    t0 = time.time()
+    entrypoint = ["--on", "test", "--docker_test", "--input", str(case_dir), "--tta",
+                  "--replace_value", "--replace_value_threshold", "300", "--cleaning_areas",
+                  "--cleaning_areas_threshold", "20", "--config", str(run_dir / "config.yaml")]
+    runs, labels = {}, {}
+    want_case = {k: 16 * v for k, v in dict(conv3x3x3=14, evonorm_s0=21,
+                                             edt_envelope=0).items()}
+    for mode, extra in (("run_directory", []),
+                        ("import_pth", ["--import_pth", str(run_dir / "best_model.pth")])):
+        out = work / f"out_docker_{mode}"
+        run = run_cli(entrypoint + extra + ["--output", str(out)], dev)
+        case, = run["cases"]
+        if case["launches"] != want_case or not case["tta"]:
+            raise AssertionError(f"phase 14 {mode}: case launches {case['launches']} != "
+                                 f"{want_case}")
+        seg = out / "Inference_segmentations_test" / f"{case_dir.name}.nii.gz"
+        check_segmentation(seg)
+        labels[mode] = read_nifti(str(seg)).data
+        runs[mode] = dict(case_s=run["case_s"], wall_s=run["wall_s"], launches=case["launches"],
+                          peak_bytes=run["peak_bytes"])
+    same = int((labels["run_directory"] == labels["import_pth"]).sum())
+    if same != labels["import_pth"].size:
+        raise AssertionError(f"phase 14: the run directory's labels differ from --import_pth's "
+                             f"on {labels['import_pth'].size - same} voxels")
+    tumour = int((labels["import_pth"] > 0).sum())
+    log(f"phase 14 Dockerfile command: labels equal to --import_pth's on all {same} voxels "
+        f"({tumour} tumour); {json.dumps(runs)}; in {time.time() - t0:.1f}s")
+    return dict(runs=runs, equal_voxels=same, tumour_voxels=tumour)
+
+
+def watch_phase(work: Path, run_dir: Path, cropped, dev) -> dict:
+    """Phase 15: ``--watch`` on an empty folder with ``--watch_warmup`` at
+    the cases' cropped shape; two w48 cases land one after the other, then a
+    corrupt one. Checks each case's launches, the first case's seconds
+    within 1.5× the second's, and the corrupt case's quarantine."""
+    import os
+    import re
+    import threading
+
+    from brats21_tpu_torch.cli.main_inference import main
+    from brats21_tpu_torch.data import native
+    from brats21_tpu_torch.data.synthetic import generate_synthetic_dataset
+    t0 = time.time()
+    inbox, staging, out = work / "watch_in", work / "watch_staging", work / "watch_out"
+    inbox.mkdir()
+    stop = work / "watch_stop"
+    max_attempts = int(os.environ.get("BRATS21_WATCH_MAX_ATTEMPTS", "3"))
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda i: generate_synthetic_dataset(
+            str(staging), num_cases=1, shape=CASE_SHAPE, seed=SEED + 20, first_case=i,
+            with_seg=False), (100, 101, 102)))
+    cases = sorted(p.name for p in staging.iterdir())
+    bad = cases[2]
+    (staging / bad / f"{bad}_t1.nii.gz").write_bytes(b"this is not a nifti")
+    logfile = out / "logfile_inference.log"
+
+    def logged(pattern):
+        return re.findall(pattern, logfile.read_text()) if logfile.exists() else []
+
+    def wait_for(pred, what, timeout=120.0):
+        t = time.time()
+        while time.time() - t < timeout:
+            if not thread.is_alive():
+                raise AssertionError(f"phase 15: the server ended before {what}")
+            if pred():
+                return time.time() - t
+            time.sleep(0.05)
+        raise AssertionError(f"phase 15: no {what} within {timeout:.0f}s")
+
+    def segmented(pid):
+        return (out / "Inference_segmentations_test" / f"{pid}.nii.gz").exists()
+
+    argv = ["--config", str(run_dir / "config.yaml"), "--on", "test", "--input", str(inbox),
+            "--output", str(out), "--device", "0", "--watch", "--watch_interval", "0.5",
+            "--watch_stop_file", str(stop), "--watch_warmup", *map(str, cropped)]
+    tally = Tally()
+    probe = CaseProbe(tally)
+    leftover = native.take_counts()
+    if leftover["loads"] or leftover["fallbacks"]:
+        raise AssertionError(f"phase 15: native counts {leftover} left unchecked before it")
+    errors = []
+
+    def serve():
+        try:
+            main(argv)
+        except BaseException as e:  # noqa: BLE001 — reported by the main thread
+            errors.append(e)
+
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+    try:
+        wait_for(lambda: logged(r"warm-up for cropped shape .* done in ([\d.]+)s"), "warm-up")
+        warmup_s = float(logged(r"warm-up for cropped shape .* done in ([\d.]+)s")[0])
+        for pid in cases[:2]:
+            os.rename(staging / pid, inbox / pid)
+            wait_for(lambda: segmented(pid), f"segmentation of {pid}")
+        os.rename(staging / bad, inbox / bad)
+        wait_for(lambda: logged(rf"case {bad} failed (\d+)/\d+ attempts: permanently"),
+                 "quarantine of the corrupt case")
+        stop.touch()
+        thread.join(timeout=60)
+    finally:
+        stop.touch()
+        thread.join(timeout=60)
+        probe.close()
+    if thread.is_alive() or errors:
+        raise AssertionError(f"phase 15: the server did not stop cleanly: {errors}")
+    counts = native.take_counts()
+    case_s = {pid: float(logged(rf"case {pid}: ([\d.]+)s")[-1]) for pid in cases[:2]}
+    attempts = int(logged(rf"case {bad} failed (\d+)/\d+ attempts")[0])
+    want = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=0)
+    if [c["launches"] for c in probe.cases] != [want] * 3:
+        raise AssertionError(f"phase 15: warm-up and watched case launches "
+                             f"{[c['launches'] for c in probe.cases]}, want {want} each")
+    if attempts != max_attempts or counts != dict(loads=3, fallbacks=2 * max_attempts):
+        raise AssertionError(f"phase 15: corrupt case quarantined after {attempts} attempts "
+                             f"(want {max_attempts}); native counts {counts}")
+    first, second = (case_s[pid] for pid in cases[:2])
+    if first > 1.5 * second:
+        raise AssertionError(f"phase 15: the first case after the warm-up took {first:.3f}s, "
+                             f"over 1.5× the second's {second:.3f}s")
+    res = dict(warmup_s=warmup_s, case_s=[first, second],
+               case_launches=probe.cases[1]["launches"],
+               eval_case_s=[c["seconds"] for c in probe.cases], quarantine_attempts=attempts,
+               native=counts, phase_s=time.time() - t0)
+    log(f"phase 15 --watch: warm-up {warmup_s:.2f}s (its case {probe.cases[0]['seconds']:.3f}s "
+        f"in eval_case); first watched case {first:.3f}s, second {second:.3f}s "
+        f"(ratio {first / second:.3f}); the corrupt case quarantined after {attempts} "
+        f"attempts; native {counts}; in {res['phase_s']:.1f}s")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -984,6 +1168,7 @@ def main() -> int:
         return 1
     import brats21_tpu_torch  # noqa: F401 — fails outside the checkout
     from brats21_tpu_torch.config import TrainConfig
+    from brats21_tpu_torch.data import native
     from brats21_tpu_torch.data.pipeline import BraTSDataset
     from brats21_tpu_torch.data.synthetic import generate_synthetic_dataset
     from brats21_tpu_torch.data.transforms import shape_to_divisible
@@ -1007,15 +1192,21 @@ def main() -> int:
     # 1. build: one nvcc per CUDA source, all started together, while the
     # case is made
     t0 = time.time()
-    sources = ("conv3x3x3.cu", "evonorm_s0.cu", "edt_envelope.cu")
+    sources = kernels.SOURCES
     builds = [kernels.start_build(src) for src in sources]
 
     def finish(build):
         log_text = kernels.finish_build(build)
         return log_text, time.time() - t0
 
-    with ThreadPoolExecutor(len(builds)) as pool:
+    def build_native():
+        if native.library() is None:
+            raise AssertionError("the native case loader did not build or load")
+        return time.time() - t0
+
+    with ThreadPoolExecutor(len(builds) + 1) as pool:
         waits = [pool.submit(finish, build) for build in builds]
+        native_wait = pool.submit(build_native)
         data = work / "data"
         generate_synthetic_dataset(str(data), num_cases=1, shape=CASE_SHAPE, seed=SEED,
                                    with_seg=False)
@@ -1026,16 +1217,8 @@ def main() -> int:
             for line in log_text.splitlines():
                 if "registers" in line or "spill" in line or "error" in line:
                     log(f"ptxas: {line.strip()}")
-    from brats21_tpu_torch.ops.kernels.conv3d import conv3x3x3
-    from brats21_tpu_torch.ops.kernels.edt import envelope
-    from brats21_tpu_torch.ops.kernels.evonorm import evonorm_s0
-    conv3x3x3(torch.ones((1, 2, 2, 2, 8), device=dev, dtype=torch.bfloat16),
-              torch.ones((3, 3, 3, 8, 8), device=dev, dtype=torch.bfloat16),
-              torch.zeros(8, device=dev))
-    evonorm_s0(torch.ones((1, 2, 2, 2, 8), device=dev), torch.ones(8, device=dev),
-               torch.zeros(8, device=dev))
-    envelope(torch.zeros((2, 8), device=dev))
-    torch.cuda.synchronize()
+        log(f"g++ {native.SOURCE}: loaded after {native_wait.result():.1f}s")
+    kernels.warm_up(dev)          # one launch of each kernel
     log(f"phase 1 build: {time.time() - t0:.1f}s")
 
     sample = BraTSDataset([{"patient_id": "probe", "img": sorted(
@@ -1066,6 +1249,17 @@ def main() -> int:
     check_model(dev)
     log(f"phase 3 model card vs CPU: {time.time() - t0:.1f}s")
 
+    # every case phases 4-14 load goes through the native loader
+    native_counts = {}
+
+    def take_native(phase, cli: bool) -> None:
+        counts = native_counts[phase] = native.take_counts()
+        if counts["fallbacks"] or (cli and not counts["loads"]):
+            raise AssertionError(f"phase {phase}: native loads {counts['loads']}, "
+                                 f"fallbacks {counts['fallbacks']}")
+
+    native.take_counts()
+
     # 4. main path through the CLI
     torch.manual_seed(SEED)
     model = get_model({"model": "equiunet_assp_evo", "width": 48})
@@ -1084,6 +1278,7 @@ def main() -> int:
     log(f"phase 4 main path: CLI wall {main_run['wall_s']:.2f}s, case "
         f"{main_run['case_s'][0]:.3f}s, peak {main_run['peak_bytes'] / 2**30:.2f} GiB, "
         f"launches {main_run['launches']}")
+    take_native(4, cli=True)
 
     # 5. TTA through the CLI, same case
     t0 = time.time()
@@ -1096,9 +1291,12 @@ def main() -> int:
     log(f"phase 5 TTA: CLI wall {tta_run['wall_s']:.2f}s, case "
         f"{tta_run['case_s'][0]:.3f}s, peak {tta_run['peak_bytes'] / 2**30:.2f} GiB, "
         f"launches {tta_run['launches']}")
+    take_native(5, cli=True)
 
     # 6. where the served case's time goes
     breakdown = stage_breakdown(model.to(dev).eval(), data, work / "out_stages", dev)
+    take_native(6, cli=False)
+    breakdown["decode_crop_normalise_by_path"] = decode_paths(data)
     log(f"phase 6 stages: {json.dumps(breakdown)}")
     del model
     torch.cuda.empty_cache()
@@ -1108,6 +1306,7 @@ def main() -> int:
     edt_res = check_edt(dev, padded)
     torch.cuda.empty_cache()
     log(f"phase 7 EDT kernel vs plain: {time.time() - t0:.1f}s")
+    take_native(7, cli=False)
 
     # 8. trainable conv / EvoNorm grads vs plain autograd, and both kernels
     # timed at the train step's 128³ level shapes
@@ -1118,6 +1317,7 @@ def main() -> int:
     evo_train = check_evonorm(lambda level: tuple(s // 2 ** (level - 1) for s in PATCH), dev)
     torch.cuda.empty_cache()
     log(f"phase 8 grads and train-shape kernels: {time.time() - t0:.1f}s")
+    take_native(8, cli=False)
 
     # 9. the training path through the CLI, then the trained weights served
     t0 = time.time()
@@ -1156,12 +1356,14 @@ def main() -> int:
         f"peak {train['peak_bytes'] / 2**30:.2f} GiB, launches per step "
         f"{train['forward_launches'][0]} forward, {train['backward_launches'][0]} backward; "
         f"served the trained best_model.pth in {served['wall_s']:.2f}s")
+    take_native(9, cli=True)
 
     # 10. where one train step's time goes
     t0 = time.time()
     torch.cuda.empty_cache()
     step_split = train_step_breakdown(dev)
     log(f"phase 10 train step split (ms): {json.dumps(step_split)} in {time.time() - t0:.1f}s")
+    take_native(10, cli=False)
 
     # 11. the boundary criterion through the train CLI: the loader makes
     # each case's distance map on the card, the steps launch no EDT
@@ -1197,14 +1399,25 @@ def main() -> int:
         f"EDT launches {boundary['run_launches']['edt_envelope']} over the run (the loader's, "
         f"{EDT_LAUNCHES_PER_LOADED_CASE} a case), per step {boundary['forward_launches'][0]} "
         f"forward, {boundary['backward_launches'][0]} backward; in {time.time() - t0:.1f}s")
+    take_native(11, cli=True)
 
     # 12. validation through the train CLI, then one val case's split
     val, val_split, val_data = validation_phase(work, train_data, extra_case, dev)
+    take_native(12, cli=True)
 
     # 13. the inference CLI on the val case with a two-member ensemble
     # (phase 11's run: the same w48 architecture, other weights)
     ensemble = ensemble_phase(work, Path(val["run_dir"]), Path(boundary["run_dir"]),
                               val_data, dev)
+    take_native(13, cli=True)
+
+    # 14. the Dockerfile's command on phase 12's run directory
+    docker = docker_phase(work, Path(val["run_dir"]), data / "BraTS2021_00000", dev)
+    take_native(14, cli=True)
+    log(f"native case loader, phases 4-14: {json.dumps(native_counts)}")
+
+    # 15. --watch serving with a warm-up at the cases' cropped shape
+    watch = watch_phase(work, Path(val["run_dir"]), sample["img"].shape[:3], dev)
 
     sliding_case, = ensemble["sliding"]["cases"]
     kernel_rows = []
@@ -1235,7 +1448,9 @@ def main() -> int:
                        val_case=val["val_cases"][0]["launches"][name],
                        val_case_tta=val["val_cases"][2]["launches"][name],
                        sliding_window_case=sliding_case["launches"][name]
-                       // sliding_case["members"]),
+                       // sliding_case["members"],
+                       docker_case_tta=docker["runs"]["run_directory"]["launches"][name],
+                       watched_case=watch["case_launches"][name]),
                    shapes=res["rows"])
         if "scan_bound_ms" in res:
             row["scan_bound_ms"] = res["scan_bound_ms"]
@@ -1258,7 +1473,8 @@ def main() -> int:
                    tta=tta_run, stages=breakdown, grads_max_abs_err=grads, train=train,
                    trained_served=served, train_step_split_ms=step_split,
                    boundary=boundary, validation=val, val_case_split=val_split,
-                   ensemble=ensemble, total_s=time.time() - t_start)
+                   ensemble=ensemble, native_loads=native_counts, docker=docker, watch=watch,
+                   total_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": kernel_rows}))

@@ -77,9 +77,22 @@ def test_cli_needs_cuda_unless_asked_for_cpu(served_run, tmp_path):
 @pytest.mark.parametrize("flag", [["--watch"], ["--watch_warmup", "8", "8", "8"],
                                   ["--watch_stop_file", "stop"]])
 def test_unported_flags_raise(served_run, tmp_path, flag):
-    """``--watch`` serving is not ported: its flags parse and raise."""
-    with pytest.raises(NotImplementedError, match="watch"):
-        port_infer_main(_argv(served_run, tmp_path / "out", "--device", "cpu", *flag))
+    """The ``--watch*`` flags no longer raise; each serves the case on disk
+    and returns: ``--watch`` with its stop file already there stops after
+    the start-up pass, and ``--watch_warmup`` or ``--watch_stop_file``
+    without ``--watch`` is ignored, the first with a warning."""
+    out = tmp_path / "out"
+    argv = [a for a in _argv(served_run, out, "--device", "cpu", *flag) if a != "--tta"]
+    if flag == ["--watch"]:
+        (tmp_path / "stop").touch()
+        argv += ["--watch_stop_file", str(tmp_path / "stop")]
+    meters = port_infer_main(argv)
+    assert (meters == {}) == (flag == ["--watch"])
+    segs = glob.glob(str(out / "Inference_segmentations_test" / "*.nii.gz"))
+    assert [os.path.basename(p) for p in segs] == ["BraTS2021_00000.nii.gz"]
+    log = (out / "logfile_inference.log").read_text()
+    assert ("--watch_warmup is only meaningful" in log) == (flag[0] == "--watch_warmup")
+    assert ("watch mode: serving" in log) == (flag == ["--watch"])
 
 
 def test_port_imports_no_jax():

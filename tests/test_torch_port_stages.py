@@ -98,8 +98,13 @@ def test_eval_loader_yields_preprocessed_cases(synthetic_case):
     loader = pipeline.EvalLoader(pipeline.BraTSDataset(recs[:2], with_seg=False))
     batches = list(loader)
     assert len(batches) == 2 and batches[1]["patient_id"] == [recs[1]["patient_id"]]
+    # the loader decodes on the native path, as the JAX package's dataset does
+    want = jax_pipeline.BraTSDataset(recs[1:2], with_seg=False)[0]
+    _assert_same(batches[1]["img"][0], want["img"])
+    # and the numpy path is the JAX package's numpy preprocessing
     img, _, _ = jax_pipeline.load_case(recs[1])
-    _assert_same(batches[1]["img"][0], jax_T.preprocess_case(img, None)["img"])
+    _assert_same(loader.dataset._getitem_numpy(recs[1])["img"],
+                 jax_T.preprocess_case(img, None)["img"])
 
 
 # ------------------------------------------------------------------ post-processing

@@ -188,21 +188,25 @@ def test_eval_bucket_pads_as_jax(pair, bucket, use_tta):
 
 def test_boundary_eval_dataset_maps_match_jax_and_need_a_device(tmp_path, monkeypatch):
     """The eval sample of a boundary criterion, distance map included,
-    against the JAX package's numpy path (its native decoder off); without
-    a device the dataset and the loaders raise."""
+    against the JAX package's: both on their native decoders, then both on
+    their numpy paths; without a device the dataset and the loaders raise."""
     from brats21_tpu.data import native
     from brats21_tpu.data.pipeline import BraTSDataset as JaxDataset
-    monkeypatch.setattr(native, "available", lambda: False)
+    from brats21_tpu_torch.data import native as port_native
     from brats21_tpu_torch.data.discovery import create_database, make_file_records
     generate_synthetic_dataset(str(tmp_path), num_cases=1, shape=(30, 28, 24), seed=9)
     records = make_file_records(create_database(str(tmp_path)), with_seg=True)
-    want = JaxDataset(records, with_seg=True, compute_distance_map=True)[0]
-    got = BraTSDataset(records, with_seg=True, compute_distance_map=True, device="cpu")[0]
-    assert sorted(got) == sorted(want)
-    for k in ("img", "seg", "foreground_start_coord", "foreground_end_coord",
-              "original_shape"):
-        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    np.testing.assert_allclose(got["distance_map"], want["distance_map"], atol=1e-5)
+    for decoder in ("native", "numpy"):
+        if decoder == "numpy":
+            monkeypatch.setattr(native, "available", lambda: False)
+            monkeypatch.setattr(port_native, "load_case_native", lambda *a, **kw: None)
+        want = JaxDataset(records, with_seg=True, compute_distance_map=True)[0]
+        got = BraTSDataset(records, with_seg=True, compute_distance_map=True, device="cpu")[0]
+        assert sorted(got) == sorted(want)
+        for k in ("img", "seg", "foreground_start_coord", "foreground_end_coord",
+                  "original_shape"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"{decoder} {k}")
+        np.testing.assert_allclose(got["distance_map"], want["distance_map"], atol=1e-5)
     with pytest.raises(ValueError, match="needs a device"):
         BraTSDataset(records, with_seg=True, compute_distance_map=True)
     cfg = TrainConfig(train_data_path=str(tmp_path), fold=None, criterion="dice_boundary")
