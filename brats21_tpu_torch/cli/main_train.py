@@ -38,7 +38,7 @@ from ..learning.checkpoint import CheckpointManager, load_for_evaluation, resume
 from ..learning.engine import Engine
 from ..learning.losses import make_criterion
 from ..learning.optimizers import make_optimizer
-from ..learning.train_state import TrainState, TrainStep
+from ..learning.train_state import TrainState, TrainStep, sync_swa_buffers
 from ..models import get_model
 from ..utils.meter import AverageMeter, ProgressMeter
 from ..utils.reporting import EvaluationReport, TensorBoardLogger
@@ -160,6 +160,10 @@ def main(argv=None) -> Dict[str, float]:
                 # past swa_start the SWA average is validated
                 # (reference engine.py:184-187)
                 use_swa = bool(cfg.swa_start) and epoch > cfg.swa_start
+                if use_swa:
+                    # the averaged weights with the current running
+                    # statistics (JAX main_train.py:244-251)
+                    sync_swa_buffers(state)
                 val_model = (state.swa_model.module if use_swa else state.model).eval()
                 val_meters = engine.evaluate(
                     [val_model], valid_loader, epoch, post_kwargs=post_kwargs_from_cfg(cfg),

@@ -5,7 +5,8 @@ engine.py:454-509): every save writes ``last_model.pth`` and, when the
 tracked value improves, ``best_model.pth``; "best" is the lowest loss or
 hausdorff_distance95, else the highest key metric. Each file is the
 reference's payload ``{"model", "optimizer", "epoch", "best_value"}``, plus
-``"swa_model"`` (an AveragedModel's state_dict) on SWA runs, so
+``"swa_model"`` (an AveragedModel's state_dict, with the model's current
+buffers: BatchNorm's running statistics) on SWA runs, so
 ``utils/weights.py:load_reference_pth`` and the reference read it;
 :func:`load_for_evaluation` is the end-of-training reload.
 """
@@ -19,7 +20,7 @@ import torch
 
 from .. import get_logger
 from ..utils.weights import load_reference_pth
-from .train_state import TrainState
+from .train_state import TrainState, sync_swa_buffers
 
 logger = get_logger("checkpoint")
 
@@ -47,6 +48,7 @@ class CheckpointManager:
             "best_value": value,
         }
         if state.swa_model is not None:
+            sync_swa_buffers(state)
             payload["swa_model"] = state.swa_model.state_dict()
         path = os.path.join(self.save_dir, name)
         torch.save(payload, path + ".tmp")

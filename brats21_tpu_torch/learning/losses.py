@@ -336,16 +336,18 @@ def make_criterion(cfg: Any) -> LossFn:
 
 def deep_supervision_loss(criterion: LossFn, outputs: Any, target: Any) -> torch.Tensor:
     """Mean of the criterion over the main and deep-supervision heads
-    (reference engine.py:312-333): ``outputs`` is logits or
-    ``(logits, [deep heads])``; ``target`` is the seg or, for the boundary
-    criteria, the (seg, distance_map) pair, the same for every head. An
-    :class:`HDCriterion` takes all heads at once."""
+    (reference engine.py:312-333, JAX ``losses.py:307-330``): ``outputs``
+    is logits, ``(logits, [deep heads])`` or, for the refinement models,
+    ``([refined, logits], [deep heads])``, every main head entering the
+    mean; ``target`` is the seg or, for the boundary criteria, the (seg,
+    distance_map) pair, the same for every head. An :class:`HDCriterion`
+    takes all heads at once."""
     if isinstance(outputs, tuple) and len(outputs) == 2 \
             and isinstance(outputs[1], (list, tuple)):
         main, deeps = outputs
     else:
         main, deeps = outputs, []
-    heads = [main] + list(deeps)
+    heads = (list(main) if isinstance(main, (list, tuple)) else [main]) + list(deeps)
     if isinstance(criterion, HDCriterion):
         losses = criterion.per_head(heads, target)
     else:

@@ -61,6 +61,8 @@ class TrainStep:
         outputs = state.model(x)
         loss = deep_supervision_loss(self.criterion, outputs, target)
         main = outputs[0] if isinstance(outputs, tuple) else outputs
+        if isinstance(main, (list, tuple)):     # [refined, logits]: the metric head
+            main = main[0]
         return loss, main
 
     def backward_update(self, state: TrainState, loss: torch.Tensor) -> torch.Tensor:
@@ -91,4 +93,17 @@ def swa_update(state: TrainState) -> None:
     engine.py:155-159): called once per epoch after ``swa_start``."""
     if state.swa_model is not None:
         state.swa_model.update_parameters(state.model)
+        sync_swa_buffers(state)
+
+
+def sync_swa_buffers(state: TrainState) -> None:
+    """Give the SWA average the model's current buffers (BatchNorm's
+    running statistics), as the JAX package pairs ``swa_params`` with the
+    current ``batch_stats`` for validation and in its checkpoints
+    (``cli/main_train.py:244-251``); AveragedModel would keep its own copy
+    from construction."""
+    if state.swa_model is not None:
+        with torch.no_grad():
+            for avg, cur in zip(state.swa_model.module.buffers(), state.model.buffers()):
+                avg.copy_(cur)
 

@@ -6,7 +6,9 @@ reproduce the reference's, so ``state_dict()`` keys equal a published
 ``best_model.pth``'s (reconstructed in
 ``brats21_tpu/utils/import_torch.py:136-183``): ``encoderN.conv_conv_se.
 {0,1,3,4,6}``, ``aspp.convs.i``, ``aspp.conv_k1.{conv,evo}``,
-``bridgeN``/``upconvN.{conv,evo}``, ``deep3.0`` and ``out_conv``.
+``bridgeN``/``upconvN.{conv,evo}``, ``deep3.0`` and ``out_conv``; the
+refinement variant (``equiunet_assp_evo_ref``) adds ``refunet.*`` in the
+2020 line's naming (``models/equiunet.py``).
 """
 
 from __future__ import annotations
@@ -18,23 +20,59 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.evonorm import EvoNormS0Function
-from .equiunet import DeepHead
+from .equiunet import DeepHead, RefUnet
 from .layers import (Conv3d, Dropout, from_kernel_layout, global_avg_pool,
                      max_avg_pool, to_kernel_layout, upsample)
 
 
-class EvoNorm3D(nn.Module):
-    """EvoNorm S0 (equiunet2021.py:55-118), in the form the model uses
-    (efficient swish, affine): ``x·sigmoid(x) / group_std(x)·γ + β`` with
-    the unbiased group variance, run by the hand-written
-    :func:`evonorm_s0` through its trainable :class:`EvoNormS0Function`.
-    The efficient swish ignores ``v``, which is still allocated, as is the
-    B0 variant's ``running_var`` buffer, so reference
-    checkpoints load with a plain ``load_state_dict``. B0 comes with the
-    model-zoo slice."""
+def group_std(x: torch.Tensor, groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """Per-(sample, group) std over (C/G, D, H, W) with the unbiased
+    variance (equiunet2021.py:48-52), broadcast back to ``x``'s
+    ``[B, D, H, W, C]`` shape."""
+    b, c = x.shape[0], x.shape[-1]
+    g = x.reshape(b, -1, groups, c // groups)
+    n = g.shape[1] * g.shape[3]
+    var = g.var(dim=(1, 3), keepdim=True, unbiased=False) * (n / max(n - 1, 1))
+    return torch.sqrt(var + eps).expand(g.shape).reshape(x.shape)
 
-    def __init__(self, num_features: int, eps: float = 1e-5, groups: int = 8):
+
+def instance_std(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Unbiased per-(sample, channel) spatial std of ``[B, D, H, W, C]``
+    (equiunet2021.py:41-45)."""
+    n = x.shape[1] * x.shape[2] * x.shape[3]
+    var = x.var(dim=(1, 2, 3), keepdim=True, unbiased=False) * (n / max(n - 1, 1))
+    return torch.sqrt(var + eps)
+
+
+class EvoNorm3D(nn.Module):
+    """EvoNorm S0/B0 (equiunet2021.py:55-118, ``assp_evo.py:71-141``).
+
+    S0 in the form the model uses (efficient swish, affine),
+    ``x·sigmoid(x) / group_std(x)·γ + β`` with the unbiased group variance,
+    runs the hand-written :func:`evonorm_s0` through its trainable
+    :class:`EvoNormS0Function`. The other forms are plain PyTorch, as they
+    are XLA in the JAX package: S0 with ``efficient=False`` takes
+    ``x·sigmoid(v·x)``, ``non_linear=False`` is the affine alone; B0
+    divides by ``max(sqrt(var + eps), v·x + instance_std(x))`` where var is
+    the biased batch variance in training, which moves the
+    ``running_var`` buffer by ``r ← 0.9·r + 0.1·var``, and ``running_var``
+    in eval. ``affine=False`` applies no affine (the JAX module raises
+    there, multiplying by a missing γ). These other forms compute in fp32
+    and return the input's dtype.
+
+    ``gamma``, ``beta``, ``v`` and ``running_var`` have the reference's
+    shape ``(1, C, 1, 1, 1)``; ``v`` and ``running_var`` are allocated in
+    every form, so reference checkpoints load with a plain
+    ``load_state_dict``."""
+
+    def __init__(self, num_features: int, non_linear: bool = True, version: str = "S0",
+                 efficient: bool = True, affine: bool = True, momentum: float = 0.9,
+                 eps: float = 1e-5, groups: int = 8):
         super().__init__()
+        if version not in ("B0", "S0"):
+            raise ValueError("Invalid EvoNorm version")
+        self.non_linear, self.version, self.efficient = non_linear, version, efficient
+        self.affine, self.momentum = affine, momentum
         self.eps = eps
         self.groups = groups
         shape = (1, num_features, 1, 1, 1)
@@ -45,10 +83,32 @@ class EvoNorm3D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[1]
-        y = EvoNormS0Function.apply(to_kernel_layout(x), self.gamma.reshape(c),
-                                    self.beta.reshape(c), min(self.groups, c),
-                                    self.eps)
-        return from_kernel_layout(y)
+        if self.version == "S0" and self.non_linear and self.efficient and self.affine:
+            y = EvoNormS0Function.apply(to_kernel_layout(x), self.gamma.reshape(c),
+                                        self.beta.reshape(c), min(self.groups, c),
+                                        self.eps)
+            return from_kernel_layout(y)
+        xf = to_kernel_layout(x).float()
+        v = self.v.reshape(c)
+        if not self.non_linear:
+            out = xf
+        elif self.version == "S0":
+            num = xf * torch.sigmoid(xf if self.efficient else v * xf)
+            out = num / group_std(xf, min(self.groups, c), self.eps)
+        else:
+            if self.training:
+                var = xf.var(dim=(0, 1, 2, 3), unbiased=False)
+                with torch.no_grad():
+                    self.running_var.mul_(self.momentum).add_(
+                        (1 - self.momentum) * var.reshape(self.running_var.shape))
+            else:
+                var = self.running_var.reshape(c)
+            den = torch.maximum(torch.sqrt(var + self.eps),
+                                v * xf + instance_std(xf, self.eps))
+            out = xf / den
+        if self.affine:
+            out = out * self.gamma.reshape(c) + self.beta.reshape(c)
+        return from_kernel_layout(out.to(x.dtype))
 
 
 class ConvEvo(nn.Module):
@@ -127,16 +187,18 @@ class EquiUnetASSPEvo(nn.Module):
     """The selected BraTS21 architecture (equiunet2021.py:225-333):
     channel-doubling MaxAvgPool downsample, half-width bridge skips, ASPP
     bottleneck, ConvEvo up-convs + trilinear upsample decoders, deep
-    supervision at up3/up2.
+    supervision at up3/up2; with ``refinement`` a RefUnet on the logits
+    (``equiunet_assp_evo_ref``).
 
     ``forward(x)`` returns ``(logits, [deep3, deep2])`` with deep
-    supervision on; ``forward(x, with_deep=False)`` skips the deep heads
+    supervision on (``([refined, logits], deeps)`` with the refinement);
+    ``forward(x, with_deep=False)`` skips the deep heads
     for callers that read the main head only (XLA drops them under ``jit``
     on the TPU)."""
 
     def __init__(self, features: Sequence[int], num_classes: int = 3,
                  deep_supervision: bool = False, dropout: float = 0.0,
-                 in_channels: int = 4):
+                 in_channels: int = 4, refinement: bool = False):
         super().__init__()
         f = list(features)
         self.deep_supervision = deep_supervision
@@ -158,6 +220,10 @@ class EquiUnetASSPEvo(nn.Module):
         if deep_supervision:
             self.deep3 = DeepHead(f[2], num_classes, 4)
             self.deep2 = DeepHead(f[1], num_classes, 2)
+        # equiunet_assp_evo_ref (assp_evo.py:300-304): relu and GroupNorm
+        # whatever the CLI's --act and --norm
+        self.refunet = RefUnet(num_classes, f[0], "relu", "group", dropout) \
+            if refinement else None
 
     def forward(self, x: torch.Tensor, with_deep: bool = True) -> ModelOutput:
         down1 = self.encoder1(x)
@@ -174,6 +240,8 @@ class EquiUnetASSPEvo(nn.Module):
         up1 = self.decoder1(torch.cat([self.bridge1(down1), up1], dim=1))
 
         out = self.out_conv(up1)
+        if self.refunet is not None:
+            out = [self.refunet(out), out]
         if not self.deep_supervision:
             return out
         deeps = [self.deep3(up3), self.deep2(up2)] if with_deep else []

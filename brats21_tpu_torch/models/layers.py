@@ -1,19 +1,31 @@
-"""Core 3D layers of the served model: NCDHW modules whose activations live
-in ``torch.channels_last_3d`` memory (physically the JAX package's
-``[B, D, H, W, C]``).
+"""Core 3D layers, norms, activations and resizes: NCDHW modules whose
+activations live in ``torch.channels_last_3d`` memory (physically the JAX
+package's ``[B, D, H, W, C]``).
 
-Precision follows the JAX package's explicit casts rather than autocast:
-parameters stay fp32 and each layer casts its weights to the activation
-dtype (``brats21_tpu/models/layers.py:266,269``).
+Port of ``brats21_tpu/models/layers.py`` (reference networks/factory.py
+and equiunet2020.py). Precision follows the JAX package's explicit casts
+rather than autocast: parameters stay fp32 and each layer casts its
+weights to the activation dtype (``layers.py:266,269``); GroupNorm,
+InstanceNorm and BCNorm compute in fp32 and return the input's dtype,
+while BatchNorm returns fp32, as flax's ``nn.BatchNorm(dtype=float32)``
+does (``layers.py:155-158``), so everything after a BatchNorm runs in
+fp32. Parameter and buffer names are torch's (``weight``/``bias``,
+``running_mean``/``running_var``), so reference checkpoints load with a
+plain ``load_state_dict``.
 """
 
 from __future__ import annotations
+
+import math
+from functools import partial
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.conv3d import Conv3x3x3Function
+
 
 def to_kernel_layout(x: torch.Tensor) -> torch.Tensor:
     """NCDHW → the kernels' contiguous ``[B, D, H, W, C]``; free for a
@@ -27,54 +39,364 @@ def from_kernel_layout(y: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 4, 1, 2, 3)
 
 
+# ---------------------------------------------------------------------------
+# Initializers (reference factory.py:203-224), in place on a torch tensor
+# ---------------------------------------------------------------------------
+
+def kaiming_normal_fan_out(w: torch.Tensor) -> torch.Tensor:
+    """torch ``kaiming_normal_(a=0, mode='fan_out')`` (factory.py:212):
+    std = sqrt(2 / fan_out), fan_out = C_out · prod(kernel)."""
+    return nn.init.kaiming_normal_(w, a=0, mode="fan_out", nonlinearity="relu")
+
+
+def torch_default_conv(w: torch.Tensor) -> torch.Tensor:
+    """torch's default conv init, kaiming_uniform with a = sqrt(5): variance
+    1 / (3 · fan_in), uniform."""
+    return nn.init.kaiming_uniform_(w, a=math.sqrt(5))
+
+
+def init_by_name(name: str, gain: float = 0.02) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The reference's init registry (factory.py:203-224)."""
+    if name == "normal":
+        return partial(nn.init.normal_, mean=0.0, std=gain)
+    if name == "xavier":
+        return nn.init.xavier_normal_
+    if name == "kaiming":
+        return kaiming_normal_fan_out
+    if name == "orthogonal":
+        return partial(nn.init.orthogonal_, gain=gain)
+    if name == "torch_default":
+        return torch_default_conv
+    raise NotImplementedError(f"initialization method [{name}] is not implemented")
+
+
+# ---------------------------------------------------------------------------
+# Activations (reference factory.py:195-200, MONAI Act registry)
+# ---------------------------------------------------------------------------
+
+_ACTS: dict = {
+    "relu": F.relu,
+    "leakyrelu": partial(F.leaky_relu, negative_slope=0.01),
+    "elu": F.elu,
+    # jax.nn.gelu's default is the tanh approximation
+    "gelu": partial(F.gelu, approximate="tanh"),
+    "swish": F.silu,
+    "silu": F.silu,
+    "mish": lambda x: x * torch.tanh(F.softplus(x)),
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "softmax": partial(torch.softmax, dim=1),     # the channel axis
+    "prelu": partial(F.leaky_relu, negative_slope=0.25),  # torch PReLU's init, fixed
+}
+
+
+def get_act(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    key = name.lower()
+    if key not in _ACTS:
+        raise ValueError(f"unknown activation {name!r}; choices: {sorted(_ACTS)}")
+    return _ACTS[key]
+
+
+class Act(nn.Module):
+    """An activation of :data:`_ACTS` as a parameter-free module (the
+    reference's Sequentials hold them between their convs and norms)."""
+
+    def __init__(self, name: str):
+        super().__init__()
+        self.name = name
+        self.fn = get_act(name)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(x)
+
+
+# ---------------------------------------------------------------------------
+# Norms (reference factory.py:125-192)
+# ---------------------------------------------------------------------------
+
+def _per_channel(t: torch.Tensor) -> torch.Tensor:
+    """A ``[C]`` vector broadcast over ``[B, D, H, W, C]``."""
+    return t.reshape(1, 1, 1, 1, -1)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm with torch semantics (factory.py:182): ``min(groups, C)``
+    groups, biased variance, eps 1e-5, affine ``weight``/``bias``; fp32
+    inside, the input's dtype out (``layers.py:88-115``)."""
+
+    def __init__(self, num_features: int, num_groups: int = 8, eps: float = 1e-5):
+        super().__init__()
+        self.groups = min(num_groups, num_features)
+        if num_features % self.groups:
+            raise ValueError(f"channels {num_features} not divisible by groups {self.groups}")
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = to_kernel_layout(x).float()
+        b, c = xf.shape[0], xf.shape[-1]
+        g = xf.reshape(b, -1, self.groups, c // self.groups)
+        mean = g.mean(dim=(1, 3), keepdim=True)
+        var = (g - mean).square().mean(dim=(1, 3), keepdim=True)
+        g = (g - mean) * torch.rsqrt(var + self.eps)
+        y = g.reshape(xf.shape) * _per_channel(self.weight) + _per_channel(self.bias)
+        return from_kernel_layout(y.to(x.dtype))
+
+
+class InstanceNorm(nn.Module):
+    """InstanceNorm3d with affine (factory.py:188): per sample and channel
+    over the spatial axes, biased variance, eps 1e-5; fp32 inside, the
+    input's dtype out (``layers.py:118-135``)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = to_kernel_layout(x).float()
+        mean = xf.mean(dim=(1, 2, 3), keepdim=True)
+        var = (xf - mean).square().mean(dim=(1, 2, 3), keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        y = y * _per_channel(self.weight) + _per_channel(self.bias)
+        return from_kernel_layout(y.to(x.dtype))
+
+
+class BatchNorm(nn.BatchNorm3d):
+    """BatchNorm3d as the JAX package runs it (``layers.py:138-158``, flax
+    ``nn.BatchNorm(momentum=0.9, dtype=float32)``), with nn.BatchNorm3d's
+    parameters and buffers so reference checkpoints load:
+
+    - training mode normalises by the batch statistics over (B, D, H, W),
+      the variance E[x²] − E[x]² clipped at 0 (flax's fast variance), and
+      moves the running statistics by ``r ← 0.9·r + 0.1·s`` with the
+      **biased** batch variance (nn.BatchNorm3d would take the unbiased);
+    - eval mode, and a ``frozen`` norm in either mode (the unet family's
+      attention gates, which the JAX package always calls with
+      ``use_running_average=True``), normalise by the running statistics
+      and leave them as they are;
+    - the output is fp32 whatever the input's dtype."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, frozen: bool = False):
+        super().__init__(num_features, eps=eps, momentum=0.1)
+        self.frozen = frozen
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = to_kernel_layout(x).float()
+        if self.training and not self.frozen:
+            mean = xf.mean(dim=(0, 1, 2, 3))
+            var = torch.clamp(xf.square().mean(dim=(0, 1, 2, 3)) - mean.square(), min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * var)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - _per_channel(mean)) * _per_channel(mul) + _per_channel(self.bias)
+        return from_kernel_layout(y)
+
+
+class EstBN(nn.Module):
+    """The reference's EstBN with its zero-initialised moving speed
+    (factory.py:149-176): its running statistics never move from mean 0,
+    variance 1, so it is ``x / sqrt(1 + 1e-5) · weight + bias``."""
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, xf: torch.Tensor) -> torch.Tensor:
+        c = xf.shape[1]
+        return (xf / math.sqrt(1.0 + 1e-5) * self.weight.reshape(1, c, 1, 1, 1)
+                + self.bias.reshape(1, c, 1, 1, 1))
+
+
+class BCNorm(nn.Module):
+    """Batch-channel norm (factory.py:125-146, ``layers.py:161-194``):
+    :class:`EstBN`, then standardisation over ``(1, B·groups, −1)`` of the
+    NCDHW element order with ``(1, groups, 1)`` affines; fp32 inside, the
+    input's dtype out.
+
+    Keys (the JAX package has no import rule for it): ``bn.weight`` and
+    ``bn.bias`` ``[C]`` (EstBN's affine), ``weight`` and ``bias``
+    ``(1, groups, 1)``."""
+
+    def __init__(self, num_features: int, num_groups: int = 8, eps: float = 1e-5):
+        super().__init__()
+        self.groups = num_groups
+        self.eps = eps
+        self.bn = EstBN(num_features)
+        self.weight = nn.Parameter(torch.ones(1, num_groups, 1))
+        self.bias = nn.Parameter(torch.zeros(1, num_groups, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.bn(x.float()).contiguous()          # NCDHW element order
+        n, g = out.shape[0], self.groups
+        flat = out.reshape(1, n * g, -1)
+        mean = flat.mean(dim=-1, keepdim=True)
+        var = (flat - mean).square().mean(dim=-1, keepdim=True)
+        flat = (flat - mean) * torch.rsqrt(var + self.eps)
+        flat = flat.reshape(n, g, -1) * self.weight + self.bias
+        y = flat.reshape(out.shape).to(x.dtype)
+        return y.contiguous(memory_format=torch.channels_last_3d)
+
+
+def get_norm_layer(norm_type: Optional[str]) -> Optional[Callable[[int], nn.Module]]:
+    """Norm factory (factory.py:179-192, ``layers.py:197-210``): a
+    constructor taking the channel count, or None for ``none`` (the conv
+    then keeps its bias, equiunet2020.py:67-75)."""
+    if norm_type in (None, "none"):
+        return None
+    if norm_type == "group":
+        return partial(GroupNorm, num_groups=8)
+    if norm_type == "batch":
+        return BatchNorm
+    if norm_type == "instance":
+        return InstanceNorm
+    if norm_type == "bcn":
+        return partial(BCNorm, num_groups=8)
+    raise ValueError("Norm type is not correct")
+
+
+# ---------------------------------------------------------------------------
+# Convolutions
+# ---------------------------------------------------------------------------
+
 class Conv3d(nn.Conv3d):
     """3D convolution with torch-style symmetric padding d·(k−1)/2
-    (``layers.py:279-305``); ``weight``/``bias`` keep nn.Conv3d's names and
-    init, so reference checkpoints load as they are.
+    (``layers.py:279-305``); ``weight``/``bias`` keep nn.Conv3d's names, so
+    reference checkpoints load as they are. ``kernel_init`` (one of the
+    initializers above) sets the weight and zeroes the bias, as the JAX
+    package's flax init does; without it nn.Conv3d's default init stays.
 
-    Stride 1, one group and a bias, as every conv of the served model. The
-    case the JAX package hands to its Pallas kernel (k=3, dilation 1, hence
-    pad 1; ``layers.py:258-261``) goes to the hand-written
-    :func:`conv3x3x3` through its trainable
-    :class:`Conv3x3x3Function`; every other conv is ``F.conv3d``, as the
-    JAX package leaves those to XLA."""
+    The case the JAX package hands to its Pallas kernel (k = 3, stride 1,
+    dilation 1, hence pad 1; ``layers.py:258-261``) goes to the
+    hand-written :func:`conv3x3x3` through its trainable
+    :class:`Conv3x3x3Function`, with a zero fp32 bias where the conv has
+    none; every other conv is ``F.conv3d``, as the JAX package leaves those
+    to XLA."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 dilation: int = 1):
-        super().__init__(in_channels, out_channels, kernel_size,
+                 dilation: int = 1, stride: int = 1, use_bias: bool = True,
+                 kernel_init: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=dilation * (kernel_size - 1) // 2,
-                         dilation=dilation)
+                         dilation=dilation, bias=use_bias)
+        if kernel_init is not None:
+            kernel_init(self.weight.data)
+            if self.bias is not None:
+                nn.init.zeros_(self.bias)
 
     @property
     def uses_kernel(self) -> bool:
-        return self.kernel_size == (3, 3, 3) and self.dilation == (1, 1, 1)
+        return (self.kernel_size == (3, 3, 3) and self.dilation == (1, 1, 1)
+                and self.stride == (1, 1, 1) and self.groups == 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(x.dtype)
         if self.uses_kernel:
+            bias = (self.bias.float() if self.bias is not None else
+                    torch.zeros(self.out_channels, dtype=torch.float32, device=x.device))
             y = Conv3x3x3Function.apply(
-                to_kernel_layout(x), w.permute(2, 3, 4, 1, 0).contiguous(),
-                self.bias.float())
+                to_kernel_layout(x), w.permute(2, 3, 4, 1, 0).contiguous(), bias)
             return from_kernel_layout(y)
-        return F.conv3d(x, w, self.bias.to(x.dtype), padding=self.padding,
-                        dilation=self.dilation)
+        return F.conv3d(x, w, None if self.bias is None else self.bias.to(x.dtype),
+                        stride=self.stride, padding=self.padding, dilation=self.dilation)
+
+
+class WSConv3d(nn.Conv3d):
+    """Weight-standardised conv (factory.py:13-29, ``layers.py:308-344``):
+    each output channel's weights centred and divided by their unbiased
+    std + 1e-5, then the conv with fp32 accumulation, stored in the input's
+    dtype, then the bias."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, dilation: int = 1, use_bias: bool = True,
+                 kernel_init: Callable[[torch.Tensor], torch.Tensor] = kaiming_normal_fan_out):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=dilation * (kernel_size - 1) // 2, dilation=dilation,
+                         bias=use_bias)
+        kernel_init(self.weight.data)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def standardized(self) -> torch.Tensor:
+        w = self.weight - self.weight.mean(dim=(1, 2, 3, 4), keepdim=True)
+        std = w.reshape(w.shape[0], -1).std(dim=1) + 1e-5
+        return w / std.reshape(-1, 1, 1, 1, 1)
+
+    def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        y = F.conv3d(x.float(), w.to(x.dtype).float(), None, stride=self.stride,
+                     padding=self.padding, dilation=self.dilation).to(x.dtype)
+        return y if self.bias is None else y + self.bias.to(y.dtype).reshape(1, -1, 1, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv(x, self.standardized())
+
+
+class ConvAWS3d(WSConv3d):
+    """Adaptive weight standardisation (factory.py:32-87,
+    ``layers.py:347-385``): weights centred and divided by
+    sqrt(unbiased var + 1e-5), then ``weight_gamma · w + weight_beta`` from
+    two buffers (ones, zeros; shape ``[C_out, 1, 1, 1, 1]``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, dilation: int = 1, use_bias: bool = True,
+                 kernel_init: Callable[[torch.Tensor], torch.Tensor] = kaiming_normal_fan_out):
+        super().__init__(in_channels, out_channels, kernel_size, stride, dilation,
+                         use_bias, kernel_init)
+        self.register_buffer("weight_gamma", torch.ones(out_channels, 1, 1, 1, 1))
+        self.register_buffer("weight_beta", torch.zeros(out_channels, 1, 1, 1, 1))
+
+    def standardized(self) -> torch.Tensor:
+        flat = self.weight.reshape(self.weight.shape[0], -1)
+        mean = flat.mean(dim=1).reshape(-1, 1, 1, 1, 1)
+        std = torch.sqrt(flat.var(dim=1) + 1e-5).reshape(-1, 1, 1, 1, 1)
+        return self.weight_gamma * ((self.weight - mean) / std) + self.weight_beta
+
+
+# ---------------------------------------------------------------------------
+# Pooling and resizing
+# ---------------------------------------------------------------------------
+
+def max_pool3d(x: torch.Tensor, window: int = 2, stride: Optional[int] = None,
+               ceil_mode: bool = False) -> torch.Tensor:
+    """MaxPool3d(2, 2) (equiunet2020.py:342; the ceil-mode variant :274)."""
+    return F.max_pool3d(x, window, stride or window, ceil_mode=ceil_mode)
+
+
+def avg_pool3d(x: torch.Tensor, window: int = 2, stride: Optional[int] = None) -> torch.Tensor:
+    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+        # PyTorch's CPU avg_pool3d has no bf16 kernel: pool in fp32, as the
+        # CUDA kernel accumulates anyway, and round once
+        return F.avg_pool3d(x.float(), window, stride or window).to(x.dtype)
+    return F.avg_pool3d(x, window, stride or window)
 
 
 def max_avg_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     """MONAI MaxAvgPool: concat(maxpool, avgpool) on channels — the
     channel-doubling downsample of EquiUnetASSPEvo (equiunet2021.py:261)."""
-    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
-        # PyTorch's CPU avg_pool3d has no bf16 kernel: pool in fp32, as the
-        # CUDA kernel accumulates anyway, and round once
-        avg = F.avg_pool3d(x.float(), window).to(x.dtype)
-    else:
-        avg = F.avg_pool3d(x, window)
-    return torch.cat([F.max_pool3d(x, window), avg], dim=1)
+    return torch.cat([max_pool3d(x, window), avg_pool3d(x, window)], dim=1)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """[B, C, D, H, W] → [B, C]."""
     return x.mean(dim=(2, 3, 4))
+
+
+def global_max_pool(x: torch.Tensor) -> torch.Tensor:
+    """[B, C, D, H, W] → [B, C]."""
+    return x.amax(dim=(2, 3, 4))
+
+
+def resize_trilinear(x: torch.Tensor, out_shape: Sequence[int]) -> torch.Tensor:
+    """Trilinear resize to the spatial ``out_shape`` with
+    ``align_corners=True`` (``layers.py:462-480``)."""
+    return F.interpolate(x, size=tuple(out_shape), mode="trilinear", align_corners=True)
 
 
 def upsample(x: torch.Tensor, scale_factor: int = 2) -> torch.Tensor:
@@ -85,13 +407,18 @@ def upsample(x: torch.Tensor, scale_factor: int = 2) -> torch.Tensor:
 
 
 class Dropout(nn.Module):
-    """Element-wise dropout that is a no-op at rate 0 and in eval mode."""
+    """Dropout that is a no-op at rate 0 and in eval mode; ``channel_wise``
+    drops whole (sample, channel) maps as torch ``nn.Dropout3d`` does
+    (``layers.py:494-514``)."""
 
-    def __init__(self, rate: float = 0.0):
+    def __init__(self, rate: float = 0.0, channel_wise: bool = False):
         super().__init__()
         self.rate = rate
+        self.channel_wise = channel_wise
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
+        if self.channel_wise:
+            return F.dropout3d(x, self.rate, training=True)
         return F.dropout(x, self.rate, training=True)

@@ -7,15 +7,16 @@ SWA runs (an AveragedModel: keys prefixed ``module.`` plus an
 ``n_averaged`` buffer), ``{"state_dict": sd}`` or a bare state_dict.
 
 ``state_dict_from_flax`` is the inverse of the JAX package's
-``state_dict_to_flax`` for EquiUnetASSPEvo (``_torch_key_assp_evo`` +
-``_convert`` in brats21_tpu/utils/import_torch.py): it maps a flax param
-tree, as nested dicts of numpy arrays, onto the port's ``state_dict`` keys
-and layouts.
+``state_dict_to_flax`` (``brats21_tpu/utils/import_torch.py``) for every
+model the port serves: it maps a flax param tree (and the ``batch_stats``
+tree of a model with BatchNorms), as nested dicts of numpy arrays, onto
+the port's ``state_dict`` keys and layouts through a copy of that
+module's per-family key rules.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,44 +51,142 @@ def load_reference_pth(path: str, prefer_swa: bool = False
     return out
 
 
-def _leaf_name(leaf: str) -> str:
-    return {"kernel": "weight", "bias": "bias"}[leaf]
+def _wb(leaf: str) -> str:
+    """torch's name for a flax leaf; BCNorm's EstBN affine (no rule in the
+    JAX package) sits under the norm's ``bn`` child."""
+    return {"kernel": "weight", "scale": "weight", "bias": "bias",
+            "mean": "running_mean", "var": "running_var",
+            "estbn_scale": "bn.weight", "estbn_bias": "bn.bias"}[leaf]
 
 
-def _torch_key(path: Sequence[str]) -> Tuple[str, str]:
-    """(torch key, kind) of one EquiUnetASSPEvo flax param path
-    (equiunet2021.py:192-333 naming)."""
-    parts = list(path)
+def _kind(leaf: str, weight_kind: str = "conv_w") -> str:
+    return weight_kind if leaf == "kernel" else "vec"
+
+
+def _torch_key_equiunet(parts: Sequence[str]) -> Tuple[str, str]:
+    """The 2020 line (``import_torch.py:112-133``): ``encoderN/ConvBnRelu1/
+    {conv/Conv_0, bn}`` → ``encoderN.ConvBnRelu1.{conv,bn}``, ``deep_*/conv``
+    → ``deep_*.0``, and RefUnet's ``refunet/{conv0,hx*,d*,conv_d0}`` alike."""
+    leaf = parts[-1]
+    if parts[0].startswith("deep"):
+        return f"{parts[0]}.0.{_wb(leaf)}", _kind(leaf)
+    if parts[-2] == "Conv_0":
+        return f"{'.'.join(parts[:-2])}.{_wb(leaf)}", _kind(leaf)
+    if parts[-2] == "bn":
+        return f"{'.'.join(parts[:-2])}.bn.{_wb(leaf)}", "vec"
+    raise KeyError(f"equiunet: unmapped flax path {'/'.join(parts)}")
+
+
+def _torch_key_att_equiunet(parts: Sequence[str]) -> Tuple[str, str]:
+    """AttEquiUnet (``import_torch.py:186-214``): ChannelGate's
+    ``Dense_{0,1}`` → ``mlp.{1,3}``, SpatialGate's ``spatial_{conv,bn}`` →
+    ``spatial.{conv,bn}``, and flax's ``bottom_2``/``bottom_2_cbam`` →
+    ``bottom_2.0``/``bottom_2.1``."""
+    parts = list(parts)
+    leaf = parts[-1]
+    if parts[0] == "bottom_2":
+        parts = ["bottom_2", "0"] + parts[1:]
+    elif parts[0] == "bottom_2_cbam":
+        parts = ["bottom_2", "1"] + parts[1:]
+    if "ChannelGate" in parts:
+        i = parts.index("ChannelGate")
+        idx = {"Dense_0": "1", "Dense_1": "3"}[parts[i + 1]]
+        return f"{'.'.join(parts[:i + 1])}.mlp.{idx}.{_wb(leaf)}", _kind(leaf, "lin_w")
+    if "SpatialGate" in parts:
+        i = parts.index("SpatialGate")
+        prefix = ".".join(parts[:i + 1])
+        if parts[i + 1] == "spatial_conv":
+            return f"{prefix}.spatial.conv.{_wb(leaf)}", _kind(leaf)
+        return f"{prefix}.spatial.bn.{_wb(leaf)}", "vec"
+    return _torch_key_equiunet(parts)
+
+
+def _torch_key_assp_evo(parts: Sequence[str]) -> Tuple[str, str]:
+    """EquiUnetASSPEvo (``import_torch.py:136-183``, equiunet2021.py:192-333
+    naming); the refinement's ``refunet`` takes the 2020 line's rule."""
     leaf, block = parts[-1], parts[0]
-    conv = "conv_w" if leaf == "kernel" else "vec"
+    conv = _kind(leaf)
+    if block == "refunet":
+        return _torch_key_equiunet(parts)
     if block.startswith("deep"):
-        return f"{block}.0.{_leaf_name(leaf)}", conv
+        return f"{block}.0.{_wb(leaf)}", conv
     if block == "out_conv":
-        return f"out_conv.{_leaf_name(leaf)}", conv
+        return f"out_conv.{_wb(leaf)}", conv
     if block == "aspp":
         sub = parts[1]
         if sub == "conv_k1":
             if parts[2] == "conv":
-                return f"aspp.conv_k1.conv.{_leaf_name(leaf)}", conv
+                return f"aspp.conv_k1.conv.{_wb(leaf)}", conv
             return f"aspp.conv_k1.evo.{leaf}", "evo"
         if sub.startswith("conv_"):
-            return f"aspp.convs.{sub.split('_')[1]}.{_leaf_name(leaf)}", conv
+            return f"aspp.convs.{sub.split('_')[1]}.{_wb(leaf)}", conv
     if block.startswith(("bridge", "upconv")):
         if parts[1] == "conv":
-            return f"{block}.conv.{_leaf_name(leaf)}", conv
+            return f"{block}.conv.{_wb(leaf)}", conv
         return f"{block}.evo.{leaf}", "evo"
     if block.startswith(("encoder", "decoder")):
         sub = parts[1]
         seq = {"conv1": "0", "evo1": "1", "conv2": "3", "evo2": "4"}
         if sub in ("conv1", "conv2"):
-            return f"{block}.conv_conv_se.{seq[sub]}.{_leaf_name(leaf)}", conv
+            return f"{block}.conv_conv_se.{seq[sub]}.{_wb(leaf)}", conv
         if sub in ("evo1", "evo2"):
             return f"{block}.conv_conv_se.{seq[sub]}.{leaf}", "evo"
         if sub == "se":
             fc = {"fc1": "0", "fc2": "2"}[parts[2]]
-            return (f"{block}.conv_conv_se.6.fc.{fc}.{_leaf_name(leaf)}",
-                    "lin_w" if leaf == "kernel" else "vec")
+            return f"{block}.conv_conv_se.6.fc.{fc}.{_wb(leaf)}", _kind(leaf, "lin_w")
     raise KeyError(f"assp_evo: unmapped flax path {'/'.join(parts)}")
+
+
+def _unet_family_rule(recurrent: bool, norm: Optional[str]):
+    """The unet family (``import_torch.py:222-278``): the Sequential index
+    of a block's second conv and of its norms depends on whether there is
+    a norm; the recurrent models' blocks are ``RRCNNn``/``Up_RRCNNn``
+    where flax names them ``Convn``/``Up_convn``; the attention gates are
+    Sequential(conv1x1, BatchNorm3d)."""
+    has_norm = norm not in (None, "none")
+
+    def rule(parts: Sequence[str]) -> Tuple[str, str]:
+        leaf, block = parts[-1], parts[0]
+        kind = _kind(leaf)
+        if block == "Conv_1x1" or block.startswith("outconv"):
+            return f"{block}.{_wb(leaf)}", kind
+        if block.startswith("Att"):
+            gate, idx = {"W_g": ("W_g", "0"), "bn_g": ("W_g", "1"),
+                         "W_x": ("W_x", "0"), "bn_x": ("W_x", "1"),
+                         "psi": ("psi", "0"), "bn_psi": ("psi", "1")}[parts[1]]
+            return f"{block}.{gate}.{idx}.{_wb(leaf)}", kind
+        if block.startswith("Up") and not block.startswith("Up_conv"):
+            idx = {"conv": "1", "norm": "2"}[parts[1]]
+            return f"{block}.up.{idx}.{_wb(leaf)}", kind
+        if recurrent:
+            tblock = ("Up_RRCNN" + block[len("Up_conv"):] if block.startswith("Up_conv")
+                      else "RRCNN" + block[len("Conv"):])
+            if parts[1] == "conv_1x1":
+                return f"{tblock}.Conv_1x1.{_wb(leaf)}", kind
+            rec = {"rec1": "0", "rec2": "1"}[parts[1]]
+            idx = {"conv": "0", "norm": "1"}[parts[2]]
+            return f"{tblock}.RCNN.{rec}.conv.{idx}.{_wb(leaf)}", kind
+        idx = ({"conv1": "0", "norm1": "1", "conv2": "3", "norm2": "4"} if has_norm
+               else {"conv1": "0", "conv2": "2"})[parts[1]]
+        return f"{block}.conv.{idx}.{_wb(leaf)}", kind
+
+    return rule
+
+
+_UNET_FAMILY = {"modified_unet": False, "att_unet": False, "r2unet": True,
+                "r2attunet": True}
+
+
+def _rule_for(model_name: str, norm: Optional[str]):
+    if model_name in ("equiunet", "equiunet_ref"):
+        return _torch_key_equiunet
+    if model_name == "att_equiunet":
+        return _torch_key_att_equiunet
+    if model_name in ("equiunet_assp_evo", "equiunet_assp_evocor", "equiunet_assp_evo_ref"):
+        return _torch_key_assp_evo
+    if model_name in _UNET_FAMILY:
+        return _unet_family_rule(_UNET_FAMILY[model_name], norm)
+    raise NotImplementedError(f"state_dict_from_flax: no rule for {model_name!r}")
 
 
 def _to_torch(arr: np.ndarray, kind: str) -> torch.Tensor:
@@ -96,28 +195,41 @@ def _to_torch(arr: np.ndarray, kind: str) -> torch.Tensor:
         arr = arr.transpose(4, 3, 0, 1, 2)
     elif kind == "lin_w":     # flax [in, out] → torch [out, in]
         arr = arr.T
-    elif kind == "evo":       # (C,) → (1, C, 1, 1, 1)
+    elif kind == "evo":       # (C,) or (1, 1, 1, 1, C) → (1, C, 1, 1, 1)
         arr = arr.reshape(1, -1, 1, 1, 1)
     return torch.from_numpy(np.array(arr, np.float32, order="C"))
 
 
-def state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The port's EquiUnetASSPEvo ``state_dict`` from the JAX package's flax
-    params (nested dicts of arrays, ``Conv_0`` levels included). Adds each
-    EvoNorm's ``v`` (ones) if absent and its vestigial ``running_var``."""
+def state_dict_from_flax(params: Mapping[str, Any], model_name: str = "equiunet_assp_evo",
+                         norm: Optional[str] = "group",
+                         batch_stats: Optional[Mapping[str, Any]] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` of ``model_name`` (built with ``norm``)
+    from the JAX package's flax params, and from its ``batch_stats`` where
+    the model has BatchNorms (``--norm batch``, the attention gates): nested
+    dicts of arrays, ``Conv_0`` and ``BatchNorm_0`` levels included. Adds
+    each EvoNorm's ``v`` (ones) if absent and its ``running_var`` (ones,
+    unless ``batch_stats`` holds it), and each BatchNorm's
+    ``num_batches_tracked`` (0)."""
+    rule = _rule_for(model_name, norm)
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping[str, Any], path: Tuple[str, ...]) -> None:
         for name, child in node.items():
             if isinstance(child, Mapping):
-                walk(child, path + (str(name),))
+                # layers.BatchNorm nests flax's own under "BatchNorm_0"
+                walk(child, path if name == "BatchNorm_0" else path + (str(name),))
             else:
-                key, kind = _torch_key(path + (str(name),))
+                key, kind = rule(path + (str(name),))
                 sd[key] = _to_torch(child, kind)
 
     walk(params, ())
+    if batch_stats is not None:
+        walk(batch_stats, ())
     for key in [k for k in sd if k.endswith(".gamma")]:
         prefix = key[: -len("gamma")]
         sd.setdefault(prefix + "v", torch.ones_like(sd[key]))
-        sd[prefix + "running_var"] = torch.ones_like(sd[key])
+        sd.setdefault(prefix + "running_var", torch.ones_like(sd[key]))
+    for key in [k for k in sd if k.endswith(".running_mean")]:
+        sd[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     return sd

@@ -14,7 +14,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    with each shape's launch plan (the conv's grid and split-K count,
    EvoNorm's blocks and channel vector);
 3. hold the width-48 model on the card (kernels) against the same model on
-   the CPU (plain versions), fp32;
+   the CPU (plain versions), fp32; then each of the model zoo's eight names
+   (``equiunet`` at 48³, the others at 32³) and three other norms
+   (instance, batch, bcn), each with its launches a forward counted;
 4. the main path: the inference CLI (``--on test --cleaning_areas
    --replace_value``, bf16) on a synthetic 240×240×155 case with seeded
    random width-48 weights; the kernels' launch counters are zeroed just
@@ -73,15 +75,30 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     other (written elsewhere, renamed in), then a corrupt one: both are
     segmented (14 / 21 / 0 launches each), the first within 1.5× the
     second's seconds, and the corrupt case is quarantined after
-    ``BRATS21_WATCH_MAX_ATTEMPTS`` (3) attempts.
+    ``BRATS21_WATCH_MAX_ATTEMPTS`` (3) attempts;
+16. Model 1's recipe (``--model equiunet --norm group --act relu --width
+    48 --criterion dice --optimizer ranger --decay_type cosine
+    --learning_rate 0.0003 --remove_outliers``) through the train CLI over
+    phase 9's four cases at 128³ (15 / 0 / 0 launches a step forward, none
+    backward), then its run directory served by ``--config`` alone on the
+    240×240×155 case with both post-processing flags, plain and with
+    ``--tta`` (15 and 240 conv launches a case); the conv kernel at Model
+    1's 15 shapes of the served and of the 128³ train forward against its
+    plain version and cuDNN, and at RefUnet's ``conv_d0`` (48 → 3);
+17. ``--model att_unet --norm batch`` w48: two train steps at 128³ and one
+    served case; the model's BatchNorm statistics move, the attention
+    gates' do not, both equal in ``last_model.pth``; the conv launches on
+    the kernel's fp32 path counted (everything after the first BatchNorm
+    runs in fp32) and that path timed against cuDNN's fp32 conv.
 
 Phase 1 also builds the native case loader (``csrc/nifti_native.cc``, g++);
 phase 6 times decode + crop + normalise on its path and on the numpy path
-on the same case, and every case that phases 4-14 load must go through it,
+on the same case, and every case that phases 4-14, 16 and 17 load must go through it,
 with no fallback to the numpy path; phase 15 counts its loads and the
 corrupt case's fallbacks exactly.
 
-Phases 2 and 7 also hold the conv and EvoNorm at the sliding window's
+Phase 8 also holds the conv's gradients with one weight applied three
+times in a forward (R2Unet's recurrent block). Phases 2 and 7 also hold the conv and EvoNorm at the sliding window's
 batches (2 × 128³) and the EDT on the validation loss's batch (12 masks of
 the padded case) against their plain versions.
 
@@ -141,6 +158,37 @@ CONV_CALLS = [(1, 4, 48, 1), (1, 48, 48, 3), (2, 96, 96, 4), (3, 192, 192, 4),
               (4, 384, 384, 2)]
 EVONORM_CALLS = [(1, 48, 4), (1, 24, 1), (2, 96, 4), (2, 48, 1), (2, 24, 1),
                  (3, 192, 4), (3, 96, 1), (3, 48, 1), (4, 384, 3), (4, 96, 1)]
+# Model 1 (EquiUnet w48, "U-Net V1"): its 15 stride-1 dilation-1 3³ convs a
+# forward, encoders 8, bottom_2 1 (768 concatenated channels), decoders 6
+# (96, 192 and 384 concatenated channels); bottom's two dilation-2 convs
+# stay on cuDNN
+MODEL1_CONV_CALLS = [(1, 4, 48, 1), (1, 48, 48, 2), (1, 96, 48, 1), (2, 48, 96, 1),
+                     (2, 96, 96, 1), (2, 192, 96, 1), (2, 96, 48, 1), (3, 96, 192, 1),
+                     (3, 192, 192, 1), (3, 384, 192, 1), (3, 192, 96, 1), (4, 192, 384, 1),
+                     (4, 384, 384, 1), (4, 768, 192, 1)]
+# RefUnet's conv_d0 (48 -> the 3 logits): one N tile of 48, 45 of it empty
+REFUNET_CONV_CALLS = [(1, 48, 3, 1)]
+# the model zoo's launches a forward with deep heads (conv3x3x3, evonorm_s0):
+# the conv kernel runs every stride-1 dilation-1 3³ conv, a RefUnet adds 11,
+# a recurrent block runs its conv three times
+ZOO_LAUNCHES = dict(equiunet=(15, 0), equiunet_ref=(26, 0), att_equiunet=(15, 0),
+                    equiunet_assp_evo_ref=(25, 21), modified_unet=(17, 0), att_unet=(17, 0),
+                    r2unet=(45, 0), r2attunet=(45, 0))
+# phase 3: each name at 32³ (Model 1 at 48³), then three other norms
+ZOO_CHECKS = [(name, "group", 48 if name == "equiunet" else 32) for name in ZOO_LAUNCHES] + [
+    ("equiunet", "instance", 32), ("modified_unet", "batch", 32), ("att_equiunet", "bcn", 32)]
+# Model 1's recipe (tests/test_cli_surface.py:121-128), and its launches a
+# train step (conv, EvoNorm, EDT)
+MODEL1_ARGS = ("--model", "equiunet", "--norm", "group", "--act", "relu", "--width", "48",
+               "--criterion", "dice", "--optimizer", "ranger", "--decay_type", "cosine",
+               "--learning_rate", "0.0003", "--remove_outliers")
+MODEL1_STEP_LAUNCHES = dict(conv3x3x3=15, evonorm_s0=0, edt_envelope=0)
+# the --norm batch phase: the attention unet, whose gates' BatchNorms the
+# JAX package never trains
+BATCHNORM_ARGS = ("--model", "att_unet", "--norm", "batch", "--width", "48", "--criterion",
+                  "dice", "--optimizer", "ranger", "--decay_type", "cosine",
+                  "--learning_rate", "0.0003")
+BATCHNORM_STEP_LAUNCHES = dict(conv3x3x3=17, evonorm_s0=0, edt_envelope=0)
 
 
 def log(msg: str) -> None:
@@ -168,16 +216,17 @@ def bound(ops: float, peak_ops: float, nbytes: float) -> tuple:
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_conv(level_shape, dev, batch: int = 1) -> dict:
-    """conv3x3x3 vs its plain version at the main path's shapes (bf16,
-    ``batch`` samples) and on a 40³ block (fp32)."""
+def check_conv(level_shape, dev, batch: int = 1, calls=CONV_CALLS) -> dict:
+    """conv3x3x3 vs its plain version at a path's shapes (bf16, ``batch``
+    samples; ``calls`` as (level, C_in, C_out, count a forward)) and on a
+    40³ block (fp32)."""
     import torch
     import torch.nn.functional as F
     from brats21_tpu_torch.ops.kernels.conv3d import conv3x3x3, conv3x3x3_plain, conv_plan
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows, total = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                            ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0)
-    for level, cin, cout, count in CONV_CALLS:
+    for level, cin, cout, count in calls:
         d, h, w = level_shape(level)
         err32 = None
         for dtype, spatial, b_ in ((torch.float32, (40, 40, 40), 1),
@@ -286,31 +335,57 @@ def check_evonorm(level_shape, dev, batch: int = 1) -> dict:
     return dict(rows=rows, **total)
 
 
-def check_model(dev) -> None:
-    """EquiUnetASSPEvo w48 at 1×4×48³ fp32: card (kernels) vs CPU (plain)."""
+def check_model(dev, name: str = "equiunet_assp_evo", norm: str = "group",
+                side: int = 48) -> dict:
+    """One model at w48 on 1×4×side³, fp32: the card (kernels) against the
+    CPU (plain versions), and the kernels' launches in the card's forward.
+    EquiUnetASSPEvo's heads are held within atol = rtol = 1e-3; the model
+    zoo's within atol = rtol = 1e-3 of the CPU head divided by its largest
+    magnitude. At w48 with their default init their heads reach |60-90|
+    (the recurrent unets), where fp32 itself is off by ~1e-3 absolute on
+    the CPU (against fp64, r2attunet's second head: 9.1e-4), so an
+    absolute 1e-3 would test the rounding, not the kernels."""
     import copy
 
     import numpy as np
     import torch
     from brats21_tpu_torch.models import get_model
+    from brats21_tpu_torch.ops.kernels import conv3d, evonorm
     torch.manual_seed(SEED)
-    cpu_model = get_model({"model": "equiunet_assp_evo", "width": 48}).eval()
+    cpu_model = get_model({"model": name, "width": 48, "norm": norm, "act": "relu"}).eval()
     gpu_model = copy.deepcopy(cpu_model).to(dev)
-    x = np.random.default_rng(SEED).standard_normal((1, 4, 48, 48, 48)).astype(np.float32)
+    x = np.random.default_rng(SEED).standard_normal((1, 4, side, side, side)).astype(np.float32)
     xt = torch.from_numpy(x).contiguous(memory_format=torch.channels_last_3d)
     with torch.inference_mode():
-        want, want_deeps = cpu_model(xt)
-        got, got_deeps = gpu_model(xt.to(dev))
-    for name, g, w_ in [("main", got, want)] + [
-            (f"deep{i}", g, w_) for i, (g, w_) in enumerate(zip(got_deeps, want_deeps))]:
+        want = cpu_model(xt)
+        counts = (conv3d.launches, evonorm.launches)
+        got = gpu_model(xt.to(dev))
+        torch.cuda.synchronize()
+        launches = (conv3d.launches - counts[0], evonorm.launches - counts[1])
+
+    def heads(out):
+        main, deeps = out
+        return (list(main) if isinstance(main, list) else [main]) + list(deeps)
+
+    diffs, scales, elementwise = [], [], True
+    for i, (g, w_) in enumerate(zip(heads(got), heads(want))):
         g = g.float().cpu()
         if not torch.isfinite(g).all():
-            raise AssertionError(f"model {name}: non-finite output on the card")
-        if not torch.allclose(g, w_, atol=1e-3, rtol=1e-3):
-            raise AssertionError(f"model {name}: card vs CPU max |diff| "
-                                 f"{(g - w_).abs().max().item():.3g} > 1e-3")
-        log(f"model w48 {name} {tuple(g.shape)}: card vs CPU max |diff| "
-            f"{(g - w_).abs().max().item():.3g}")
+            raise AssertionError(f"model {name} head {i}: non-finite output on the card")
+        diff = (g - w_).abs().max().item()
+        scale = 1.0 if name == "equiunet_assp_evo" else max(w_.abs().max().item(), 1.0)
+        if not torch.allclose(g / scale, w_ / scale, atol=1e-3, rtol=1e-3):
+            raise AssertionError(f"model {name} ({norm}) head {i}: card vs CPU max |diff| "
+                                 f"{diff:.3g} over 1e-3 of the head's scale {scale:.3g}")
+        elementwise &= bool(torch.allclose(g, w_, atol=1e-3, rtol=1e-3))
+        diffs.append(diff)
+        scales.append(scale)
+    log(f"model {name} w48 --norm {norm} at {side}³: {len(diffs)} heads, card vs CPU max "
+        f"|diff| {max(diffs):.3g} (heads' scales {[round(x, 1) for x in scales]}; within "
+        f"atol = rtol = 1e-3 unscaled: {elementwise}); launches conv {launches[0]}, "
+        f"EvoNorm {launches[1]}")
+    return dict(max_abs_diff=max(diffs), head_scales=scales, unscaled_1e3=elementwise,
+                launches=list(launches))
 
 
 def tf32_default() -> None:
@@ -651,6 +726,43 @@ def check_grads(dev) -> dict:
             log(f"{key} grads vs plain autograd: " + ", ".join(
                 f"{k} {v:.3g}" for k, v in errs.items()))
             del x, args, y, got, want, ct
+    # one conv applied three times with the same weights (R2Unet's
+    # RecurrentBlock: x1 = conv(x), then x1 = conv(x + x1) twice): the
+    # gradients of the weights add up over the three launches
+    spatial, c = tuple(s // 4 for s in PATCH), 48
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((1, *spatial, c), generator=gen, device=dev).to(dtype)
+        w = (torch.randn((3, 3, 3, c, c), generator=gen, device=dev) / (27 * c) ** 0.5).to(dtype)
+        b = 0.1 * torch.randn((c,), generator=gen, device=dev)
+        ct = torch.randn((1, *spatial, c), generator=gen, device=dev).to(dtype)
+        args = [a.detach().requires_grad_() for a in (x, w, b)]
+
+        def recurrent(fn):
+            y = fn(*args)
+            for _ in range(2):
+                y = fn(args[0] + y, args[1], args[2])
+            return y
+
+        count = conv3d.launches
+        got = torch.autograd.grad(recurrent(Conv3x3x3Function.apply), args, ct)
+        torch.cuda.synchronize()
+        if conv3d.launches - count != 3:
+            raise AssertionError(f"shared conv: {conv3d.launches - count} launches, not 3")
+        want = torch.autograd.grad(recurrent(conv3x3x3_plain), args, ct)
+        rel = 2e-2 if dtype == torch.bfloat16 else 1e-5
+        errs = {}
+        for gname, gg, ww in zip(("dx", "dw", "dbias"), got, want):
+            err = (gg.float() - ww.float()).abs().max().item()
+            tol = rel * ww.float().abs().max().item() + 1e-6
+            if not err <= tol:
+                raise AssertionError(f"shared conv {gname} {dtype}: max |err| {err:.3g} > "
+                                     f"{tol:.3g}")
+            errs[gname] = err
+        key = f"conv3x3x3 shared x3 {str(dtype)[6:]} {'x'.join(map(str, spatial))}x{c}"
+        out[key] = errs
+        log(f"{key} grads vs plain autograd: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items()))
+        del x, w, args, got, want, ct
     return out
 
 
@@ -705,19 +817,22 @@ class StepProbe:
 
 
 def run_training(data: Path, runs: Path, dev, criterion: str = "dice_hd",
-                 extra=("--fold", "None")) -> dict:
+                 extra=("--fold", "None"), model_args=None) -> dict:
     """The train CLI on the card, probed step by step and val case by val
     case; returns launches per step and over the whole run, each val
     case's launches, step times, the CLI wall, the peak memory and the run
-    directory."""
+    directory. ``model_args`` (model, norm, criterion, optimizer) default to
+    the flagship recipe with ``criterion``."""
     import statistics
 
     import torch
     from brats21_tpu_torch.cli.main_train import main as train_main
+    if model_args is None:
+        model_args = ("--model", "equiunet_assp_evo", "--width", str(WIDTH), "--criterion",
+                      criterion, "--optimizer", "ranger", "--decay_type", "cosine",
+                      "--learning_rate", "3e-4", "--use_gc", "--remove_outliers")
     argv = ["--train_data_path", str(data), "--save_path", str(runs), "--device", "0",
-            "--model", "equiunet_assp_evo", "--width", str(WIDTH), "--criterion", criterion,
-            "--optimizer", "ranger", "--decay_type", "cosine", "--learning_rate", "3e-4",
-            "--use_gc", "--remove_outliers", "--epochs", "1", "--num_workers", "2",
+            *model_args, "--epochs", "1", "--num_workers", "2",
             "--patch_size", *map(str, PATCH), "--no_tensorboard", *extra]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1160,6 +1275,207 @@ def watch_phase(work: Path, run_dir: Path, cropped, dev) -> dict:
     return res
 
 
+class DtypeTally:
+    """Counts the conv kernel's launches by input dtype (``--norm batch``
+    runs every conv after the first BatchNorm in fp32, on the kernel's FMA
+    tile path) while it is open."""
+
+    def __init__(self):
+        import torch
+        from brats21_tpu_torch.ops.kernels import conv3d
+        self.mod, self.orig = conv3d, conv3d.conv3x3x3
+        self.counts = {"bf16": 0, "fp32": 0}
+        tally = self
+
+        def conv3x3x3(x, w, bias):
+            before = conv3d.launches
+            out = tally.orig(x, w, bias)
+            tally.counts["bf16" if x.dtype == torch.bfloat16 else "fp32"] += (
+                conv3d.launches - before)
+            return out
+
+        conv3d.conv3x3x3 = conv3x3x3
+
+    def take(self) -> dict:
+        counts, self.counts = self.counts, {"bf16": 0, "fp32": 0}
+        return counts
+
+    def close(self) -> None:
+        self.mod.conv3x3x3 = self.orig
+
+
+def model1_phase(work: Path, train_data: Path, data: Path, level_shape, dev) -> dict:
+    """Phase 16: Model 1's recipe end to end. The train CLI with its flags
+    over phase 9's four cases at 128³ (4 steps of 15 / 0 / 0 launches
+    forward, none backward), then the inference CLI with only ``--config``
+    of the run on the 240×240×155 case, plain and with ``--tta``, both with
+    the post-processing flags (15 / 0 / 0 and 240 / 0 / 0 a case); and the
+    conv kernel at Model 1's 15 shapes of the served forward and of the
+    128³ train forward against its plain version and cuDNN."""
+    t0 = time.time()
+    train = run_training(train_data, work / "runs_model1", dev, model_args=MODEL1_ARGS)
+    if train["steps"] != 4:
+        raise AssertionError(f"Model 1 ran {train['steps']} steps, not 4")
+    for i, (fwd, bwd) in enumerate(zip(train["forward_launches"], train["backward_launches"])):
+        if fwd != MODEL1_STEP_LAUNCHES or any(bwd.values()):
+            raise AssertionError(f"Model 1 step {i}: forward launches {fwd} (want "
+                                 f"{MODEL1_STEP_LAUNCHES}), backward {bwd} (want none)")
+    if not math.isfinite(train["result"]["train_loss"]):
+        raise AssertionError(f"Model 1 train loss {train['result']['train_loss']}")
+    run_dir = Path(train["run_dir"])
+    if not (run_dir / "best_model.pth").is_file():
+        raise AssertionError("Model 1: no best_model.pth in the run directory")
+    serve = {}
+    for mode, extra, per_case in (("plain", [], 1), ("tta", ["--tta"], 16)):
+        out = work / f"out_model1_{mode}"
+        run = run_cli(["--config", str(run_dir / "config.yaml"), "--on", "test", "--input",
+                       str(data), "--device", "0", "--cleaning_areas", "--replace_value",
+                       "--output", str(out), *extra], dev)
+        case, = run["cases"]
+        want = {k: per_case * v for k, v in MODEL1_STEP_LAUNCHES.items()}
+        if case["launches"] != want:
+            raise AssertionError(f"Model 1 served {mode}: launches {case['launches']} != {want}")
+        check_segmentation(out / "Inference_segmentations_test" / "BraTS2021_00000.nii.gz")
+        serve[mode] = dict(case_s=run["case_s"], wall_s=run["wall_s"],
+                           launches=case["launches"], peak_bytes=run["peak_bytes"])
+    conv_served = check_conv(level_shape, dev, calls=MODEL1_CONV_CALLS)
+    conv_train = check_conv(lambda level: tuple(s // 2 ** (level - 1) for s in PATCH), dev,
+                            calls=MODEL1_CONV_CALLS)
+    conv_refunet = check_conv(level_shape, dev, calls=REFUNET_CONV_CALLS)
+    import torch
+    torch.cuda.empty_cache()
+    for run in (train,):
+        run.pop("forward_launches")
+        run.pop("backward_launches")
+    res = dict(train=train, serve=serve, conv_served=conv_served, conv_train=conv_train,
+               conv_refunet_conv_d0=conv_refunet, phase_s=time.time() - t0)
+    log(f"phase 16 Model 1 (equiunet w48): train {train['steps']} steps, loss "
+        f"{train['result']['train_loss']:.4f}, steps {[round(t, 1) for t in train['step_ms']]} ms, "
+        f"peak {train['peak_bytes'] / 2**30:.2f} GiB (no remat); served case plain "
+        f"{serve['plain']['case_s'][0]:.3f}s (wall {serve['plain']['wall_s']:.2f}s), TTA "
+        f"{serve['tta']['case_s'][0]:.3f}s (wall {serve['tta']['wall_s']:.2f}s); conv a served "
+        f"forward {conv_served['ms']:.3f} ms (bound {conv_served['bound_ms']:.3f}, cuDNN "
+        f"{conv_served['library_ms']:.3f}, plain {conv_served['plain_ms']:.3f}), a 128³ train "
+        f"forward {conv_train['ms']:.3f} ms (bound {conv_train['bound_ms']:.3f}, cuDNN "
+        f"{conv_train['library_ms']:.3f}); in {res['phase_s']:.1f}s")
+    return res
+
+
+def time_fp32_conv(dev, spatial, cin: int, cout: int) -> dict:
+    """The conv kernel's fp32 path (the FMA tile kernel, where ``--norm
+    batch`` sends every conv after the first BatchNorm) at one shape:
+    against its plain version within 1e-4·max|ref|, timed beside cuDNN's
+    fp32 ``F.conv3d`` (TF32 off) and the bound at the fp32 peak."""
+    import torch
+    import torch.nn.functional as F
+    from brats21_tpu_torch.ops.kernels.conv3d import conv3x3x3, conv3x3x3_plain
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    x = torch.randn((1, *spatial, cin), generator=gen, device=dev)
+    w = torch.randn((3, 3, 3, cin, cout), generator=gen, device=dev) / math.sqrt(27 * cin)
+    b = 0.1 * torch.randn((cout,), generator=gen, device=dev)
+    y, ref = conv3x3x3(x, w, b), conv3x3x3_plain(x, w, b)
+    err = (y - ref).abs().max().item()
+    if not err <= 1e-4 * ref.abs().max().item():
+        raise AssertionError(f"conv3x3x3 fp32 {cin}->{cout} at {spatial}: max |err| {err:.3g}")
+    m = math.prod(spatial)
+    b_ms, by = bound(2.0 * m * cout * 27 * cin, PEAK_FP32,
+                     4.0 * (m * cin + m * cout + 27 * cin * cout + cout))
+    x_cl, w_oi = x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2).contiguous()
+    row = dict(shape=[1, *spatial, cin, cout], max_abs_err=err, bound_ms=b_ms, bound_by=by,
+               ms=time_ms(lambda: conv3x3x3(x, w, b), iters=3),
+               library_ms=time_ms(lambda: F.conv3d(x_cl, w_oi, b, padding=1), iters=3))
+    log(f"conv3x3x3 fp32 {cin}->{cout} at 1x{'x'.join(map(str, spatial))}: err {err:.3g}, "
+        f"kernel {row['ms']:.3f} ms, cuDNN fp32 {row['library_ms']:.3f} ms, bound "
+        f"{b_ms:.3f} ms ({by})")
+    del x, w, y, ref, x_cl, w_oi
+    return row
+
+
+def batchnorm_phase(work: Path, train_data: Path, data: Path, served_padded, dev) -> dict:
+    """Phase 17: ``--model att_unet --norm batch`` w48, two train steps at
+    128³ (17 conv launches a step), then one served case. The model's
+    BatchNorm running statistics move, the attention gates' stay at their
+    start (the JAX package calls the gates with running averages), both as
+    the checkpoint holds them; and the share of conv launches that took the
+    fp32 path (everything after the first BatchNorm runs in fp32)."""
+    import torch
+    from brats21_tpu_torch.learning.checkpoint import CheckpointManager
+    from brats21_tpu_torch.utils.weights import load_reference_pth
+    t0 = time.time()
+    bn_data = work / "batchnorm_data"
+    bn_data.mkdir()
+    for case in sorted(p for p in train_data.iterdir() if p.is_dir())[:2]:
+        (bn_data / case.name).symlink_to(case, target_is_directory=True)
+    saved = {}
+    orig_write = CheckpointManager._write
+
+    def write(manager, name, state, epoch, value):
+        saved[name] = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()
+                       if k.endswith(("running_mean", "running_var"))}
+        return orig_write(manager, name, state, epoch, value)
+
+    CheckpointManager._write = write
+    dtypes = DtypeTally()
+    try:
+        train = run_training(bn_data, work / "runs_batchnorm", dev, model_args=BATCHNORM_ARGS)
+        train_dtypes = dtypes.take()
+        run_dir = Path(train["run_dir"])
+        out = work / "out_batchnorm"
+        served = run_cli(["--config", str(run_dir / "config.yaml"), "--on", "test", "--input",
+                          str(data), "--device", "0", "--output", str(out)], dev)
+        served_dtypes = dtypes.take()
+    finally:
+        dtypes.close()
+        CheckpointManager._write = orig_write
+    if train["steps"] != 2:
+        raise AssertionError(f"--norm batch ran {train['steps']} steps, not 2")
+    for i, fwd in enumerate(train["forward_launches"]):
+        if fwd != BATCHNORM_STEP_LAUNCHES:
+            raise AssertionError(f"--norm batch step {i}: launches {fwd} != "
+                                 f"{BATCHNORM_STEP_LAUNCHES}")
+    if not math.isfinite(train["result"]["train_loss"]):
+        raise AssertionError(f"--norm batch train loss {train['result']['train_loss']}")
+    case, = served["cases"]
+    if case["launches"] != BATCHNORM_STEP_LAUNCHES:
+        raise AssertionError(f"--norm batch served launches {case['launches']}")
+    check_segmentation(out / "Inference_segmentations_test" / "BraTS2021_00000.nii.gz")
+    on_disk = load_reference_pth(str(run_dir / "last_model.pth"))
+    moved = gates = 0
+    for key, value in saved["last_model.pth"].items():
+        if not torch.equal(on_disk[key], value):
+            raise AssertionError(f"--norm batch: {key} differs between the model and its "
+                                 "checkpoint")
+        start = torch.zeros_like(value) if key.endswith("mean") else torch.ones_like(value)
+        if key.startswith("Att"):
+            gates += 1
+            if not torch.equal(value, start):
+                raise AssertionError(f"--norm batch: the gate statistic {key} moved")
+        elif torch.equal(value, start):
+            raise AssertionError(f"--norm batch: {key} did not move in training")
+        else:
+            moved += 1
+    n_train = sum(train_dtypes.values())
+    # the fp32 path at the level-1 shapes of the attention unet's decoder,
+    # in the 128³ train step and the served case
+    fp32_rows = [time_fp32_conv(dev, spatial, cin, 48)
+                 for spatial in (PATCH, tuple(served_padded)) for cin in (48, 96)]
+    torch.cuda.empty_cache()
+    res = dict(steps=train["steps"], step_ms=train["step_ms"], fp32_conv=fp32_rows,
+               train_loss=train["result"]["train_loss"], peak_bytes=train["peak_bytes"],
+               moved_statistics=moved, frozen_gate_statistics=gates,
+               conv_launches_train=train_dtypes, conv_launches_served=served_dtypes,
+               fp32_share_train=train_dtypes["fp32"] / max(n_train, 1),
+               served_case_s=served["case_s"], served_wall_s=served["wall_s"],
+               phase_s=time.time() - t0)
+    log(f"phase 17 --norm batch (att_unet w48): {train['steps']} steps "
+        f"{[round(t, 1) for t in train['step_ms']]} ms, loss {res['train_loss']:.4f}, peak "
+        f"{train['peak_bytes'] / 2**30:.2f} GiB; {moved} running statistics moved, {gates} gate "
+        f"statistics unmoved, all equal in last_model.pth; conv launches by dtype: train "
+        f"{train_dtypes}, served case {served_dtypes}; served case {served['case_s'][0]:.3f}s; "
+        f"in {res['phase_s']:.1f}s")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1244,10 +1560,18 @@ def main() -> int:
         f"{conv_sw['library_ms']:.3f}), EvoNorm {evo_sw['ms']:.3f} ms (bound "
         f"{evo_sw['bound_ms']:.3f})")
 
-    # 3. whole model, card vs CPU
+    # 3. whole models, card vs CPU: the flagship, then the model zoo's
+    # eight names and three other norms, each forward's launches checked
     t0 = time.time()
     check_model(dev)
-    log(f"phase 3 model card vs CPU: {time.time() - t0:.1f}s")
+    zoo = {}
+    for name, norm, side in ZOO_CHECKS:
+        res = zoo[f"{name}/{norm}"] = check_model(dev, name, norm, side)
+        if res["launches"] != list(ZOO_LAUNCHES[name]):
+            raise AssertionError(f"model {name} ({norm}): launches {res['launches']} a forward, "
+                                 f"want {list(ZOO_LAUNCHES[name])}")
+    torch.cuda.empty_cache()
+    log(f"phase 3 models card vs CPU: {time.time() - t0:.1f}s")
 
     # every case phases 4-14 load goes through the native loader
     native_counts = {}
@@ -1419,6 +1743,15 @@ def main() -> int:
     # 15. --watch serving with a warm-up at the cases' cropped shape
     watch = watch_phase(work, Path(val["run_dir"]), sample["img"].shape[:3], dev)
 
+    # 16. Model 1's recipe: train, then serve its run directory
+    native.take_counts()
+    model1 = model1_phase(work, train_data, data, level_shape, dev)
+    take_native(16, cli=True)
+
+    # 17. --norm batch: the attention unet's running statistics
+    batchnorm = batchnorm_phase(work, train_data, data, padded, dev)
+    take_native(17, cli=True)
+
     sliding_case, = ensemble["sliding"]["cases"]
     kernel_rows = []
     for name, route, source, replaces, tolerance, res, res_train, ms_per in (
@@ -1450,8 +1783,23 @@ def main() -> int:
                        sliding_window_case=sliding_case["launches"][name]
                        // sliding_case["members"],
                        docker_case_tta=docker["runs"]["run_directory"]["launches"][name],
-                       watched_case=watch["case_launches"][name]),
+                       watched_case=watch["case_launches"][name],
+                       model1_train_step=MODEL1_STEP_LAUNCHES[name],
+                       model1_case=model1["serve"]["plain"]["launches"][name],
+                       model1_case_tta=model1["serve"]["tta"]["launches"][name],
+                       batchnorm_att_unet_train_step=BATCHNORM_STEP_LAUNCHES[name]),
                    shapes=res["rows"])
+        if name == "conv3x3x3":
+            row["model1"] = {
+                k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                      "max_abs_err", "rows")}
+                for k, v in (("served_forward", model1["conv_served"]),
+                             ("train_forward_128", model1["conv_train"]),
+                             ("refunet_conv_d0_served", model1["conv_refunet_conv_d0"]))}
+            row["fp32_launches_norm_batch"] = dict(
+                train=batchnorm["conv_launches_train"],
+                served_case=batchnorm["conv_launches_served"])
+            row["fp32_path_shapes"] = batchnorm["fp32_conv"]
         if "scan_bound_ms" in res:
             row["scan_bound_ms"] = res["scan_bound_ms"]
             row["full_case_edt_sq"] = dict(ms=res["full_case_ms"],
@@ -1474,6 +1822,7 @@ def main() -> int:
                    trained_served=served, train_step_split_ms=step_split,
                    boundary=boundary, validation=val, val_case_split=val_split,
                    ensemble=ensemble, native_loads=native_counts, docker=docker, watch=watch,
+                   zoo_models=zoo, model1=model1, batchnorm=batchnorm,
                    total_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))
     shutil.rmtree(work, ignore_errors=True)

@@ -4,8 +4,9 @@ shapes the main path's level sizes do not reach (odd H/W, C_in = 4, C_out
 not a multiple of the tile; EDT lines of odd length, longer than a block,
 on every axis, and hand-made edge lines), the EDT mask pass, the batched
 HD loss and the loader's distance map, the trainable conv / EvoNorm
-against autograd of their plain versions, and the sliding window and a
-dice_hd validation loss on the card against the CPU. Marked ``cuda``: without a card every test
+against autograd of their plain versions (one conv applied three times
+too), the model zoo's conv shapes, Model 1 and R2Unet, and the sliding
+window and a dice_hd validation loss on the card against the CPU. Marked ``cuda``: without a card every test
 skips. On a machine with one, from the repository root:
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
@@ -34,7 +35,12 @@ CONV_CASES = [((1, 6, 11, 7, 5), 9), ((2, 5, 16, 8, 4), 6), ((1, 4, 13, 17, 3), 
               # H and W under 8 and not multiples of it; D = 1; the 192 N tile;
               # B = 2 at 96; the split-K level of the 128³ patch (16³×384)
               ((1, 3, 5, 3, 32), 48), ((1, 1, 12, 10, 48), 48), ((1, 4, 9, 10, 192), 192),
-              ((2, 3, 9, 17, 96), 96), ((1, 16, 16, 16, 384), 384)]
+              ((2, 3, 9, 17, 96), 96), ((1, 16, 16, 16, 384), 384),
+              # the model zoo: decoder inputs made by concatenation (96, 192,
+              # 384 and 768 channels, the last at Model 1's served 25×25×17
+              # level), RefUnet's conv0 (3 -> 48) and conv_d0 (48 -> 3)
+              ((1, 9, 10, 11, 96), 48), ((1, 7, 6, 5, 192), 96), ((1, 6, 5, 4, 384), 192),
+              ((1, 25, 25, 17, 768), 192), ((1, 5, 7, 6, 3), 48), ((1, 12, 10, 9, 48), 3)]
 EVO_CASES = [(1, 5, 6, 7, 8), (2, 4, 4, 4, 24), (1, 10, 10, 10, 384), (2, 9, 9, 9, 96),
              (1, 33, 31, 29, 48),
              # 3 channels a group at a ragged row count; C = 48 over 10**6 rows;
@@ -167,6 +173,52 @@ def test_model_on_card_matches_cpu(dev):
     assert (conv3d.launches - c0, evonorm.launches - e0) == (14, 21)
     for g, w in [(got, want)] + list(zip(got_deeps, want_deeps)):
         torch.testing.assert_close(g.cpu(), w, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["equiunet", "r2unet"])
+def test_zoo_model_on_card_matches_cpu(dev, name):
+    """Model 1 (equiunet, 15 conv launches a forward) and R2Unet (45: each
+    recurrent conv three times) at width 8, fp32: the card against the
+    CPU, every head within 1e-3."""
+    torch.manual_seed(1)
+    cpu = get_model({"model": name, "width": 8, "norm": "group"}).eval()
+    card = get_model({"model": name, "width": 8, "norm": "group"}).eval()
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+    x = torch.randn((1, 4, 24, 32, 16)).contiguous(memory_format=torch.channels_last_3d)
+    c0 = conv3d.launches
+    with torch.inference_mode():
+        want, want_deeps = cpu(x)
+        got, got_deeps = card(x.to(dev))
+    assert conv3d.launches - c0 == {"equiunet": 15, "r2unet": 45}[name]
+    for g, w in [(got, want)] + list(zip(got_deeps, want_deeps)):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shared_conv_grads_add_up(dev, dtype):
+    """One conv applied three times with the same weights (R2Unet's
+    RecurrentBlock): the trainable kernel's gradients against autograd of
+    the plain version, fp32 within 1e-5 and bf16 within 2e-2 of max|ref|."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((1, 6, 7, 9, 16), generator=gen, device=dev).to(dtype)
+    w = (0.1 * torch.randn((3, 3, 3, 16, 16), generator=gen, device=dev)).to(dtype)
+    b = torch.randn(16, generator=gen, device=dev)
+    ct = torch.randn((1, 6, 7, 9, 16), generator=gen, device=dev).to(dtype)
+    args = [a.detach().requires_grad_() for a in (x, w, b)]
+
+    def recurrent(fn):
+        y = fn(*args)
+        for _ in range(2):
+            y = fn(args[0] + y, args[1], args[2])
+        return y
+
+    got = torch.autograd.grad(recurrent(Conv3x3x3Function.apply), args, ct)
+    want = torch.autograd.grad(recurrent(conv3x3x3_plain), args, ct)
+    rel = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    for g, w_ in zip(got, want):
+        assert (g.float() - w_.float()).abs().max().item() <= \
+            rel * w_.float().abs().max().item() + 1e-6
 
 
 EDT_CASES = [((3, 17, 9, 11), 1.0), ((2, 5, 300, 7), 1.5), ((1, 33, 40, 155), 1.5),

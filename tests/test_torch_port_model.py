@@ -155,7 +155,9 @@ def test_tta_combos_in_reference_order():
 
 
 def test_get_model_names_later_slices():
-    with pytest.raises(NameError, match="model-zoo"):
-        get_model({"model": "equiunet", "width": 8})
+    """The MONAI-backed names come with the model zoo's second part; an
+    unknown name is the reference's error."""
+    with pytest.raises(NameError, match="second part of the model zoo"):
+        get_model({"model": "segresnet", "width": 8})
     with pytest.raises(NameError, match="Not Supported"):
         get_model({"model": "nope"})
