@@ -16,13 +16,24 @@ every epoch (``main_train.py:282-283``), and ``--val_data_path`` may name
 the val cases. ``--debug_val`` skips the train epochs.
 ``--evaluate_end_training`` and ``--only_evaluate`` reload the best weights
 and evaluate the val cases without and with TTA into
-``segmentations{,_tta}/`` and ``Evaluation{,_tta}.xlsx/.csv``. Multi-host
-runs and preemption are not ported.
+``segmentations{,_tta}/`` and ``Evaluation{,_tta}.xlsx/.csv``.
+
+Preemption (JAX ``main_train.py:77-98,159-236``): a SIGTERM during training
+is deferred to the next batch, where the run saves ``last_model.pth`` with
+the last whole epoch and a ``batch_cursor`` (the batches of the next epoch
+already applied; none when the stop lands after an epoch's last batch) and
+exits 0; ``--resume RUN/last_model.pth`` goes on from that batch with the
+engine's global step, and with it each step's dropout generator, where the
+uninterrupted run had them. Outside training (``--only_evaluate``, the
+end-of-training evaluation) SIGTERM terminates with 128 + 15.
+``BRATS21_PREEMPT_AT_STEP=N`` acts as a SIGTERM landing once the global
+step reaches N. Multi-host runs are not ported.
 """
 
 from __future__ import annotations
 
 import os
+import signal
 import time
 import warnings
 from datetime import datetime
@@ -38,7 +49,8 @@ from ..learning.checkpoint import CheckpointManager, load_for_evaluation, resume
 from ..learning.engine import Engine
 from ..learning.losses import make_criterion
 from ..learning.optimizers import make_optimizer
-from ..learning.train_state import TrainState, TrainStep, sync_swa_buffers
+from ..learning.train_state import (TrainState, TrainStep, model_uses_rng,
+                                   sync_swa_buffers)
 from ..models import get_model
 from ..utils.meter import AverageMeter, ProgressMeter
 from ..utils.reporting import EvaluationReport, TensorBoardLogger
@@ -97,16 +109,41 @@ def evaluate_end_training(cfg: TrainConfig, engine: Engine, valid_loader,
 
 def main(argv=None) -> Dict[str, float]:
     """Run the CLI; returns the last epoch's mean train loss and validation
-    loss, the run directory's best value and, after the end-of-training
-    evaluation, its mean key metrics."""
+    loss, the engine's global step, the run directory's best value and,
+    after the end-of-training evaluation, its mean key metrics."""
     total_start = time.time()
+    # installed first, so a SIGTERM during start-up is honoured at the
+    # first batch; outside a training phase it keeps terminate semantics
+    stop = {"flag": False, "defer": True}
+
+    def request_stop(signum, frame):
+        stop["flag"] = True
+        if not stop["defer"]:
+            raise SystemExit(128 + signum)
+
+    try:
+        previous = signal.signal(signal.SIGTERM, request_stop)
+    except ValueError:          # not the main thread
+        previous = None
+    try:
+        return _main(argv, total_start, stop)
+    finally:
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
+
+
+def _main(argv, total_start: float, stop: Dict[str, bool]) -> Dict[str, float]:
     cfg = get_train_args(argv)
     device = resolve_device(cfg.device)
     payload: Optional[dict] = None
     start_epoch = 1
+    resume_batch = 0
     if cfg.resume:
         payload = torch.load(cfg.resume, map_location="cpu", weights_only=True)
         start_epoch = int(payload["epoch"]) + 1
+        # a mid-epoch preemption's cursor: epoch start_epoch already ran
+        # its first resume_batch batches
+        resume_batch = int(payload.get("batch_cursor", 0))
     h_params = setup_save_path(cfg)
     if not cfg.resume:
         cfg.to_yaml(os.path.join(cfg.save_path, "config.yaml"))
@@ -127,31 +164,53 @@ def main(argv=None) -> Dict[str, float]:
     optimizer = make_optimizer(cfg, model.parameters(), steps_per_epoch)
     swa = torch.optim.swa_utils.AveragedModel(model) if cfg.swa_start else None
     state = TrainState(model, optimizer, swa)
-    step = TrainStep(criterion, use_amp=not cfg.no_amp,
-                     log_metrics=cfg.log_train_metrics)
+    step = TrainStep(criterion, use_amp=not cfg.no_amp, log_metrics=cfg.log_train_metrics,
+                     stochastic=model_uses_rng(cfg), seed=cfg.seed)
     engine = Engine(cfg, device, criterion=criterion, tb=tb)
     ckpt = CheckpointManager(cfg.save_path, save_on=cfg.save_on,
                              key_metric=cfg.key_metric[0])
     if payload is not None:
         resume(state, payload)
-        # the epochs before start_epoch ran whole; the "+ resume_batch" term
-        # of JAX main_train.py:170-171 comes with preemption's batch cursor
-        engine.global_step = (start_epoch - 1) * steps_per_epoch
+        # each step's generator is keyed on the global step: restore it so
+        # the resumed run draws what the uninterrupted one did
+        engine.global_step = (start_epoch - 1) * steps_per_epoch + resume_batch
         ckpt.best_value = float(payload["best_value"])
-        logger.info("resumed from %s at epoch %d (best %s)", cfg.resume,
-                    start_epoch - 1, ckpt.best_value)
+        logger.info("resumed from %s at epoch %d (batch %d, best %s)", cfg.resume,
+                    start_epoch - 1, resume_batch, ckpt.best_value)
 
     epoch_time = AverageMeter("Time", ":6.3f")
     progress = ProgressMeter(cfg.epochs, [epoch_time], prefix="Epoch: ")
     result: Dict[str, float] = {}
-    if not cfg.only_evaluate:
+    if cfg.only_evaluate:
+        stop["defer"] = False           # no training phase: SIGTERM exits
+    else:
         logger.info("Time elapsed before training: %.1fs", time.time() - total_start)
         t0 = time.time()
+        stop_at = os.environ.get("BRATS21_PREEMPT_AT_STEP")
+        stop_at = int(stop_at) if stop_at is not None else None
+
+        def should_stop() -> bool:
+            if stop_at is not None and engine.global_step >= stop_at:
+                stop["flag"] = True
+            return stop["flag"]
+
         for epoch in range(start_epoch, cfg.epochs + 1):
             train_meters = None
             if not cfg.debug_val:
-                train_meters = engine.train_epoch(state, step, train_loader, epoch)
+                train_meters = engine.train_epoch(
+                    state, step, train_loader, epoch, should_stop=should_stop,
+                    start_batch=resume_batch if epoch == start_epoch else 0)
                 result["train_loss"] = float(train_meters["loss"].avg)
+            if stop["flag"]:
+                # mid-epoch: the last whole epoch and the batch cursor; after
+                # the epoch's last batch the epoch counts in full
+                stop_batch = engine.last_epoch_stop
+                done_epoch, cursor = ((epoch, 0) if stop_batch is None
+                                      else (epoch - 1, stop_batch))
+                ckpt.save_last(state, done_epoch, batch_cursor=cursor)
+                logger.info("preempted after epoch %d (batch cursor %d): last_model saved, "
+                            "exiting cleanly", done_epoch, cursor)
+                break
             epoch_time.update(time.time() - t0)
             t0 = time.time()
             progress.display(epoch)
@@ -178,9 +237,13 @@ def main(argv=None) -> Dict[str, float]:
                                   val_meters["loss"].avg - train_meters["loss"].avg, epoch)
             if cfg.fold is None and train_meters is not None:
                 ckpt.save(state, epoch, result["train_loss"])
+    # nothing checkpointable is left: SIGTERM terminates the evaluation
+    stop["defer"] = False
+    result["global_step"] = engine.global_step
     if ckpt.best_value is not None:
         result["best_value"] = ckpt.best_value
-    if (cfg.evaluate_end_training or cfg.only_evaluate) and valid_loader is not None:
+    if (cfg.evaluate_end_training or cfg.only_evaluate) and valid_loader is not None \
+            and not stop["flag"]:
         result.update(evaluate_end_training(cfg, engine, valid_loader, h_params, tb,
                                             device))
     tb.close()

@@ -240,12 +240,17 @@ class TrainLoader:
         self.compute_dm = compute_dm
         self.device = device
         self.epoch = 0
+        self.start_batch = 0
 
     def __len__(self) -> int:
         return -(-len(self.dataset) // self.batch_size)
 
-    def set_epoch(self, epoch: int) -> None:
+    def set_epoch(self, epoch: int, start_batch: int = 0) -> None:
+        """The epoch keys the order and the augmentations; iteration yields
+        its batches from ``start_batch`` on (a preempted epoch's remainder)
+        without making the ones before, whose draws it does not shift."""
         self.epoch = epoch
+        self.start_batch = start_batch
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         rng = np.random.default_rng((self.seed, self.epoch))
@@ -263,7 +268,8 @@ class TrainLoader:
                 remove_outliers=ds.remove_outliers, compute_dm=self.compute_dm,
                 device=self.device) for idx in batches[bi]])
 
-        return iter(_PrefetchIterator(make_batch, len(batches),
+        first = self.start_batch
+        return iter(_PrefetchIterator(lambda bi: make_batch(first + bi), len(batches) - first,
                                       num_workers=self.num_workers))
 
 

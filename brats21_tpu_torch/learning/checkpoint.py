@@ -6,7 +6,8 @@ tracked value improves, ``best_model.pth``; "best" is the lowest loss or
 hausdorff_distance95, else the highest key metric. Each file is the
 reference's payload ``{"model", "optimizer", "epoch", "best_value"}``, plus
 ``"swa_model"`` (an AveragedModel's state_dict, with the model's current
-buffers: BatchNorm's running statistics) on SWA runs, so
+buffers: BatchNorm's running statistics) on SWA runs and ``"batch_cursor"``
+in a ``last_model.pth`` saved mid-epoch by a preempted run, so
 ``utils/weights.py:load_reference_pth`` and the reference read it;
 :func:`load_for_evaluation` is the end-of-training reload.
 """
@@ -40,13 +41,16 @@ class CheckpointManager:
         self.minimize = save_on == "loss" or key_metric == "hausdorff_distance95"
         self.best_value: Optional[float] = None
 
-    def _write(self, name: str, state: TrainState, epoch: int, value: float) -> None:
+    def _write(self, name: str, state: TrainState, epoch: int, value: float,
+               batch_cursor: int = 0) -> None:
         payload: Dict[str, Any] = {
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
             "epoch": epoch,
             "best_value": value,
         }
+        if batch_cursor:
+            payload["batch_cursor"] = int(batch_cursor)
         if state.swa_model is not None:
             sync_swa_buffers(state)
             payload["swa_model"] = state.swa_model.state_dict()
@@ -65,6 +69,16 @@ class CheckpointManager:
             self._write(BEST_NAME, state, epoch, self.best_value)
             logger.info("epoch %d: new best %s=%.5f", epoch, self.save_on, value)
         return improved
+
+
+    def save_last(self, state: TrainState, epoch: int, batch_cursor: int = 0) -> None:
+        """Write ``last_model.pth`` alone, leaving the best value as it is
+        (graceful preemption, JAX ``checkpoint.py:117-131``): ``epoch`` is
+        the last whole epoch, ``batch_cursor`` the batches of the next one
+        already applied to ``state``, which a resume skips."""
+        value = self.best_value if self.best_value is not None else (
+            float("inf") if self.minimize else float("-inf"))
+        self._write(LAST_NAME, state, epoch, value, batch_cursor)
 
 
 def resume(state: TrainState, payload: Dict[str, Any]) -> None:

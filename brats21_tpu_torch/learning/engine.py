@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +81,8 @@ class Engine:
         self.tb = tb or TensorBoardLogger(None, enabled=False)
         self.global_step = 0
         self.val_step = 0
+        # the batch index where the last train_epoch stopped early, or None
+        self.last_epoch_stop: Optional[int] = None
 
     # ------------------------------------------------------------------ train
 
@@ -91,12 +93,23 @@ class Engine:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
-    def train_epoch(self, state: TrainState, step: TrainStep, loader,
-                    epoch: int) -> Dict[str, AverageMeter]:
+    def train_epoch(self, state: TrainState, step: TrainStep, loader, epoch: int,
+                    should_stop: Optional[Callable[[], bool]] = None,
+                    start_batch: int = 0) -> Dict[str, AverageMeter]:
         """One epoch (engine.py:256-348): batch loop → train step → meters,
-        then the SWA update past ``swa_start``."""
+        then the SWA update past ``swa_start``.
+
+        ``should_stop`` is polled before every batch (graceful preemption);
+        when it turns true the epoch ends with the meters so far, the batch
+        index stays in :attr:`last_epoch_stop` (None after a whole epoch)
+        and the partial epoch adds nothing to the SWA average.
+        ``start_batch`` resumes a preempted epoch: the loader's order for
+        the epoch is the same, the first ``start_batch`` batches are not
+        made, and each step's generator is keyed on ``global_step``, which
+        the caller restores."""
         cfg = self.cfg
-        loader.set_epoch(epoch)
+        self.last_epoch_stop = None
+        loader.set_epoch(epoch, start_batch)
         batch_time = AverageMeter("time", ":6.3f")
         data_time = AverageMeter("data", ":6.3f")
         losses = AverageMeter("loss", ":.4e")
@@ -125,7 +138,11 @@ class Engine:
 
         wire = np.float32 if cfg.no_amp else np.float16
         t0 = time.time()
-        for i, batch in enumerate(loader):
+        for i, batch in enumerate(loader, start=start_batch):
+            if should_stop is not None and should_stop():
+                logger.info("train_epoch: stop requested at batch %d/%d", i, len(loader))
+                self.last_epoch_stop = i
+                break
             # [B, X, Y, Z, C] → NCDHW views in channels_last_3d memory
             img = self.to_device(batch["img"].astype(wire)).permute(0, 4, 1, 2, 3)
             target: Any = self.to_device(
@@ -136,7 +153,7 @@ class Engine:
                 target = (target, self.to_device(
                     batch["distance_map"]).permute(0, 4, 1, 2, 3))
             data_time.update(time.time() - t0)
-            metrics = step(state, img, target)
+            metrics = step(state, img, target, self.global_step)
             self.global_step += 1
             if pending is not None:
                 collect(pending)          # step i is already enqueued
@@ -145,7 +162,7 @@ class Engine:
         if pending is not None:
             collect(pending)
         self.tb.log_meters(epoch, [losses], step_mode="train_epoch")
-        if cfg.swa_start and epoch > cfg.swa_start:
+        if cfg.swa_start and epoch > cfg.swa_start and self.last_epoch_stop is None:
             swa_update(state)
         return {"loss": losses, "grad_norm": gnorms, "batch_time": batch_time,
                 "data_time": data_time}

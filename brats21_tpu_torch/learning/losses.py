@@ -14,7 +14,7 @@ by the data loader (``data/transforms.py:compute_distance_map_fn``).
 from __future__ import annotations
 
 from functools import partial
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -337,12 +337,17 @@ def make_criterion(cfg: Any) -> LossFn:
 def deep_supervision_loss(criterion: LossFn, outputs: Any, target: Any) -> torch.Tensor:
     """Mean of the criterion over the main and deep-supervision heads
     (reference engine.py:312-333, JAX ``losses.py:307-330``): ``outputs``
-    is logits, ``(logits, [deep heads])`` or, for the refinement models,
+    is logits, ``(logits, [deep heads])``, for the refinement models
     ``([refined, logits], [deep heads])``, every main head entering the
-    mean; ``target`` is the seg or, for the boundary criteria, the (seg,
-    distance_map) pair, the same for every head. An :class:`HDCriterion`
-    takes all heads at once."""
-    if isinstance(outputs, tuple) and len(outputs) == 2 \
+    mean, or ``(logits, {name: scalar})``, whose scalars are additive
+    auxiliary losses (SegResNetVAE's ``vae_loss``, MONAI semantics) added
+    after the mean and never given to the criterion; ``target`` is the seg
+    or, for the boundary criteria, the (seg, distance_map) pair, the same
+    for every head. An :class:`HDCriterion` takes all heads at once."""
+    aux: Dict[str, torch.Tensor] = {}
+    if isinstance(outputs, tuple) and len(outputs) == 2 and isinstance(outputs[1], dict):
+        (main, aux), deeps = outputs, []
+    elif isinstance(outputs, tuple) and len(outputs) == 2 \
             and isinstance(outputs[1], (list, tuple)):
         main, deeps = outputs
     else:
@@ -352,4 +357,7 @@ def deep_supervision_loss(criterion: LossFn, outputs: Any, target: Any) -> torch
         losses = criterion.per_head(heads, target)
     else:
         losses = [criterion(h, target) for h in heads]
-    return torch.stack(losses).mean()
+    loss = torch.stack(losses).mean()
+    for value in aux.values():
+        loss = loss + value
+    return loss

@@ -95,6 +95,38 @@ class TrainOptimizer:
         self._acc = [a.to(p.device) for a, p in zip(state["acc"], self.params)]
 
 
+class NovoGrad(torch.optim.Optimizer):
+    """``optax.novograd(lr, b1, b2, eps, weight_decay)``
+    (``brats21_tpu/learning/optimizers.py:48-49``) with optax's
+    ``scale_by_novograd`` semantics: per parameter tensor one scalar
+    ``nu`` — ‖g‖² at the first step, then b2·nu + (1−b2)·‖g‖² — and
+    ``mu`` = g / (√nu + eps) + wd·p at the first step, then b1·mu + that,
+    with no (1−b1) factor and no bias correction; the update is −lr·mu at
+    each group's ``lr`` (set by the caller from the schedule). A parameter
+    without a gradient steps as with a zero one."""
+
+    def __init__(self, params, lr: float = 0.0, betas=(0.9, 0.98), eps: float = 1e-8,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            eps, wd, lr = group["eps"], group["weight_decay"], group["lr"]
+            for p in group["params"]:
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                state = self.state[p]
+                sq = torch.linalg.vector_norm(g) ** 2
+                nu = sq if not state else (1 - b2) * sq + b2 * state["nu"]
+                u = g / (torch.sqrt(nu) + eps) + wd * p
+                state["mu"] = u if not state else b1 * state["mu"] + u
+                state["nu"] = nu
+                p.add_(-lr * state["mu"])
+        return None
+
+
 def make_optimizer(cfg: Any, params: List[torch.Tensor],
                    steps_per_epoch: int) -> TrainOptimizer:
     """definer.py:291-380 dispatch with the JAX package's kwargs."""
@@ -125,8 +157,7 @@ def make_optimizer(cfg: Any, params: List[torch.Tensor],
                        gc_conv_only=cfg.gc_conv_only, normloss=cfg.normloss,
                        normloss_factor=cfg.normloss_factor)
     elif name == "novograd":
-        raise NotImplementedError(
-            "--optimizer novograd comes with a later slice of the port")
+        opt = NovoGrad(params, 0.0, betas=(0.9, 0.98), eps=1e-8, weight_decay=wd)
     else:
         raise NameError("Not Supported Optimizer")
     if getattr(cfg, "adaptive_gradient_clipping", False):

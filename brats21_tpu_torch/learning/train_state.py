@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from ..models.layers import step_generator, stochastic
 from .losses import LossFn, deep_supervision_loss
 from .optimizers import TrainOptimizer, global_norm
 
@@ -41,24 +42,43 @@ def dice_metric(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.where(exists_p ^ exists_g, 0.0, dice)
 
 
+def model_uses_rng(cfg: Any) -> bool:
+    """Whether the model draws random numbers in training
+    (``train_state.py:55-59``): dropout layers, or SegResNetVAE's latent
+    sampling (z = μ + σ·ε)."""
+    return (getattr(cfg, "dropout", 0.0) or 0.0) > 0 or getattr(cfg, "model", "") == "segresnetvae"
+
+
 class TrainStep:
     """forward (bf16 unless ``no_amp``) → deep-supervision loss → backward
     → optimizer step, as ``make_train_step`` (train_state.py:62-111). The
     metrics stay on the device, so the caller can read step i−1's while
     step i runs. ``log_metrics`` adds the main head's per-channel batch
-    Dice."""
+    Dice.
+
+    With ``stochastic`` (the JAX package's ``not deterministic``,
+    :func:`model_uses_rng`) the model's dropout masks and latent samples
+    draw from a generator seeded from ``(seed, step)`` on the batch's
+    device, ``step`` being the engine's global step, as the JAX package
+    folds its step rng (``engine.py:332``); otherwise they are off, in
+    training too."""
 
     def __init__(self, criterion: LossFn, use_amp: bool = True,
-                 log_metrics: bool = False):
+                 log_metrics: bool = False, stochastic: bool = False, seed: int = 0):
         self.criterion = criterion
         self.use_amp = use_amp
         self.log_metrics = log_metrics
+        self.stochastic = stochastic
+        self.seed = seed
 
-    def forward_loss(self, state: TrainState, img: torch.Tensor, target: Any):
+    def forward_loss(self, state: TrainState, img: torch.Tensor, target: Any,
+                     step: int = 0):
         """(loss, main-head logits) of one batch, NCDHW; ``target`` is the
         seg or the boundary criteria's (seg, distance_map) pair."""
         x = img.to(torch.bfloat16 if self.use_amp else torch.float32)
-        outputs = state.model(x)
+        gen = step_generator(self.seed, step, x.device) if self.stochastic else None
+        with stochastic(state.model, gen):
+            outputs = state.model(x)
         loss = deep_supervision_loss(self.criterion, outputs, target)
         main = outputs[0] if isinstance(outputs, tuple) else outputs
         if isinstance(main, (list, tuple)):     # [refined, logits]: the metric head
@@ -75,10 +95,10 @@ class TrainStep:
         opt.step()
         return gnorm
 
-    def __call__(self, state: TrainState, img: torch.Tensor,
-                 target: Any) -> Dict[str, torch.Tensor]:
+    def __call__(self, state: TrainState, img: torch.Tensor, target: Any,
+                 step: int = 0) -> Dict[str, torch.Tensor]:
         state.model.train()
-        loss, main = self.forward_loss(state, img, target)
+        loss, main = self.forward_loss(state, img, target, step)
         metrics = {"loss": loss.detach(), "grad_norm": self.backward_update(state, loss)}
         if self.log_metrics:
             with torch.no_grad():

@@ -6,13 +6,16 @@ from typing import Any
 
 from torch import nn
 
-from ..config import MODEL_CHOICES
 from .assp_evo import EquiUnetASSPEvo, EvoNorm3D
 from .equiunet import CBAM, AttEquiUnet, EquiUnet, RefUnet, Unet
+from .dynunet import DynUNet
+from .extra import BasicUNet, HighResNet, SegResNet, SegResNetVAE, VNet
 from .unet_family import AttUnet, R2AttUnet, R2Unet, UnetFamily
+from .unetr import UNETR
 
 __all__ = ["get_model", "EquiUnet", "AttEquiUnet", "Unet", "EquiUnetASSPEvo",
-           "EvoNorm3D", "CBAM", "RefUnet", "IN_CHANNELS"]
+           "EvoNorm3D", "CBAM", "RefUnet", "BasicUNet", "SegResNet", "SegResNetVAE",
+           "HighResNet", "VNet", "DynUNet", "UNETR", "IN_CHANNELS"]
 
 IN_CHANNELS = 4  # t1 / t1ce / t2 / flair (definer.py:46)
 
@@ -22,14 +25,13 @@ _UNET_FAMILY = {"modified_unet": UnetFamily, "att_unet": AttUnet,
 
 def get_model(cfg: Any) -> nn.Module:
     """Build the model named by ``cfg.model`` (a TrainConfig, argparse
-    Namespace or dict carrying model/norm/act/width/dropout/num_classes),
-    with deep supervision on, as the JAX package's ``get_model``
-    (``models/__init__.py:20-64``) does. The port serves the equiunet
-    lines (``equiunet``, ``equiunet_ref``, ``att_equiunet``,
-    ``equiunet_assp_evo``/``_evocor``, ``equiunet_assp_evo_ref``) and the
-    unet family (``modified_unet``, ``att_unet``, ``r2unet``,
-    ``r2attunet``); the MONAI-backed names come with the second part of the
-    model zoo (ROADMAP A7)."""
+    Namespace or dict carrying model/norm/act/width/dropout/num_classes and,
+    for ``segresnetvae`` and ``unet_tr``, patch_size), as the JAX package's
+    ``get_model`` (``models/__init__.py:20-94``) does: the equiunet lines
+    and the unet family with deep supervision on, and the MONAI-backed names
+    (``basic_unet``, ``segresnet``, ``segresnetvae``, ``highresnet``,
+    ``vnet``, ``nnunet``, ``unet_tr``) with the reference's
+    hyperparameters."""
     get = cfg.get if isinstance(cfg, dict) else (
         lambda k, d=None: getattr(cfg, k, d))
     name = get("model")
@@ -56,8 +58,25 @@ def get_model(cfg: Any) -> nn.Module:
         # The family takes no dropout.
         return _UNET_FAMILY[name](features4, num_classes=num_classes, norm=norm, act=act,
                                   deep_supervision=True, in_channels=IN_CHANNELS)
-    if name in MODEL_CHOICES:
-        raise NameError(
-            f"model {name!r} is not ported yet: the MONAI-backed models come with "
-            "the second part of the model zoo (ROADMAP A7, part 2)")
+    if name == "basic_unet":
+        features = [width * 2 ** i for i in range(5)] + [width]
+        return BasicUNet(features, num_classes=num_classes, act=act, norm=norm,
+                         dropout=dropout, in_channels=IN_CHANNELS)
+    if name == "segresnet":
+        return SegResNet(init_filters=8, num_classes=num_classes, dropout=dropout, norm=norm,
+                         in_channels=IN_CHANNELS)
+    if name == "segresnetvae":
+        return SegResNetVAE(get("patch_size"), init_filters=8, num_classes=num_classes,
+                            dropout=dropout, in_channels=IN_CHANNELS)
+    if name == "highresnet":
+        return HighResNet(num_classes=num_classes, act=act, norm=norm, dropout=dropout,
+                          in_channels=IN_CHANNELS)
+    if name == "vnet":
+        return VNet(num_classes=num_classes, act=act, dropout=dropout, in_channels=IN_CHANNELS)
+    if name == "nnunet":
+        return DynUNet(num_classes=num_classes, norm=norm, in_channels=IN_CHANNELS)
+    if name == "unet_tr":
+        return UNETR(tuple(get("patch_size")), num_classes=num_classes, feature_size=16,
+                     hidden_size=768, mlp_dim=3072, num_heads=12, norm=norm,
+                     in_channels=IN_CHANNELS)
     raise NameError("Not Supported Model")

@@ -267,24 +267,26 @@ def get_norm_layer(norm_type: Optional[str]) -> Optional[Callable[[int], nn.Modu
 # ---------------------------------------------------------------------------
 
 class Conv3d(nn.Conv3d):
-    """3D convolution with torch-style symmetric padding d·(k−1)/2
-    (``layers.py:279-305``); ``weight``/``bias`` keep nn.Conv3d's names, so
+    """3D convolution with torch-style symmetric padding, d·(k−1)/2 unless
+    ``padding`` is given (``layers.py:279-305``; VNet's 5³ convs take 2,
+    its 2³/s2 convs 0); ``weight``/``bias`` keep nn.Conv3d's names, so
     reference checkpoints load as they are. ``kernel_init`` (one of the
     initializers above) sets the weight and zeroes the bias, as the JAX
     package's flax init does; without it nn.Conv3d's default init stays.
 
     The case the JAX package hands to its Pallas kernel (k = 3, stride 1,
-    dilation 1, hence pad 1; ``layers.py:258-261``) goes to the
-    hand-written :func:`conv3x3x3` through its trainable
-    :class:`Conv3x3x3Function`, with a zero fp32 bias where the conv has
-    none; every other conv is ``F.conv3d``, as the JAX package leaves those
-    to XLA."""
+    dilation 1, pad 1; ``layers.py:258-261``) goes to the hand-written
+    :func:`conv3x3x3` through its trainable :class:`Conv3x3x3Function`,
+    with a zero fp32 bias where the conv has none, at every width; every
+    other conv is ``F.conv3d``, as the JAX package leaves those to XLA."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  dilation: int = 1, stride: int = 1, use_bias: bool = True,
-                 kernel_init: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+                 kernel_init: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                 padding: Optional[int] = None):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         padding=dilation * (kernel_size - 1) // 2,
+                         padding=(dilation * (kernel_size - 1) // 2 if padding is None
+                                  else padding),
                          dilation=dilation, bias=use_bias)
         if kernel_init is not None:
             kernel_init(self.weight.data)
@@ -294,7 +296,8 @@ class Conv3d(nn.Conv3d):
     @property
     def uses_kernel(self) -> bool:
         return (self.kernel_size == (3, 3, 3) and self.dilation == (1, 1, 1)
-                and self.stride == (1, 1, 1) and self.groups == 1)
+                and self.stride == (1, 1, 1) and self.padding == (1, 1, 1)
+                and self.groups == 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.to(x.dtype)
@@ -306,6 +309,34 @@ class Conv3d(nn.Conv3d):
             return from_kernel_layout(y)
         return F.conv3d(x, w, None if self.bias is None else self.bias.to(x.dtype),
                         stride=self.stride, padding=self.padding, dilation=self.dilation)
+
+
+class ConvTranspose3d(nn.ConvTranspose3d):
+    """flax ``nn.ConvTranspose(ch, (k,)*3, strides=k, dtype=x.dtype)`` as
+    the model zoo uses it (k = stride = 2): computed in the input's dtype
+    with the weight and bias cast to it. The weight is torch's
+    ``[C_in, C_out, k, k, k]``, whose taps are flax's kernel flipped on
+    every spatial axis (flax does not flip; ``import_torch.py:641-646``,
+    :func:`brats21_tpu_torch.utils.weights.state_dict_from_flax`)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 2,
+                 stride: int = 2, use_bias: bool = True):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         bias=use_bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose3d(
+            x, self.weight.to(x.dtype), None if self.bias is None else self.bias.to(x.dtype),
+            stride=self.stride)
+
+
+class Linear(nn.Linear):
+    """flax ``nn.Dense(dtype=x.dtype)``: the weight and bias cast to the
+    input's dtype (fp32 parameters)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype))
 
 
 class WSConv3d(nn.Conv3d):
@@ -393,32 +424,89 @@ def global_max_pool(x: torch.Tensor) -> torch.Tensor:
     return x.amax(dim=(2, 3, 4))
 
 
-def resize_trilinear(x: torch.Tensor, out_shape: Sequence[int]) -> torch.Tensor:
-    """Trilinear resize to the spatial ``out_shape`` with
-    ``align_corners=True`` (``layers.py:462-480``)."""
-    return F.interpolate(x, size=tuple(out_shape), mode="trilinear", align_corners=True)
+def resize_trilinear(x: torch.Tensor, out_shape: Sequence[int],
+                     align_corners: bool = True) -> torch.Tensor:
+    """Trilinear resize to the spatial ``out_shape`` (``layers.py:462-480``;
+    ``align_corners=False`` is torch's half-pixel rule with the source
+    clamped at 0, as the JAX package's interpolation matrices have it)."""
+    return F.interpolate(x, size=tuple(out_shape), mode="trilinear",
+                         align_corners=align_corners)
 
 
-def upsample(x: torch.Tensor, scale_factor: int = 2) -> torch.Tensor:
-    """Trilinear ×scale with ``align_corners=True`` (torch nn.Upsample
-    semantics, equiunet2020.py:351,439)."""
-    return F.interpolate(x, scale_factor=scale_factor, mode="trilinear",
-                         align_corners=True)
+def upsample(x: torch.Tensor, scale_factor: int = 2,
+             align_corners: bool = True) -> torch.Tensor:
+    """Trilinear ×scale (``layers.py:483-486``): ``align_corners=True`` is
+    torch nn.Upsample's in equiunet2020.py:351,439, ``False`` MONAI
+    SegResNet's."""
+    d, h, w = x.shape[2:]
+    return resize_trilinear(x, (d * scale_factor, h * scale_factor, w * scale_factor),
+                            align_corners)
+
+
+class Upsample(nn.Module):
+    """:func:`upsample` as a parameter-free module (MONAI's Sequentials
+    hold it between a conv and a norm)."""
+
+    def __init__(self, scale_factor: int = 2, align_corners: bool = False):
+        super().__init__()
+        self.scale_factor = scale_factor
+        self.align_corners = align_corners
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return upsample(x, self.scale_factor, self.align_corners)
 
 
 class Dropout(nn.Module):
-    """Dropout that is a no-op at rate 0 and in eval mode; ``channel_wise``
-    drops whole (sample, channel) maps as torch ``nn.Dropout3d`` does
-    (``layers.py:494-514``)."""
+    """Dropout that is a no-op at rate 0, in eval mode and while
+    ``deterministic``; ``channel_wise`` drops whole (sample, channel) maps
+    as torch ``nn.Dropout3d`` does (``layers.py:494-514``). The masks draw
+    from ``generator`` when one is set (:func:`stochastic`), else from
+    torch's global generator."""
 
     def __init__(self, rate: float = 0.0, channel_wise: bool = False):
         super().__init__()
         self.rate = rate
         self.channel_wise = channel_wise
+        self.generator: Optional[torch.Generator] = None
+        self.deterministic = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.rate == 0.0 or not self.training:
+        if self.rate == 0.0 or not self.training or self.deterministic:
             return x
-        if self.channel_wise:
-            return F.dropout3d(x, self.rate, training=True)
-        return F.dropout(x, self.rate, training=True)
+        shape = x.shape[:2] + (1,) * (x.dim() - 2) if self.channel_wise else x.shape
+        keep = torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(
+            1.0 - self.rate, generator=self.generator)
+        return x * keep * (1.0 / (1.0 - self.rate))
+
+
+def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """The stochastic layers' generator of one train step, seeded from
+    ``(seed, step)`` alone, as the JAX package folds its step rng on the
+    global step (``engine.py:332``): a run resumed mid-epoch draws the same
+    masks as an uninterrupted one."""
+    g = torch.Generator(device=device)
+    g.manual_seed(((int(seed) & 0x7FFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
+    return g
+
+
+class stochastic:
+    """The JAX train step's ``deterministic = not model_uses_rng(cfg)``
+    (``train_state.py:55-59,74``) on a torch model, for one forward: every
+    module with a ``generator`` attribute (:class:`Dropout`, SegResNetVAE's
+    latent sampling) draws from ``generator``, or, when it is None, runs
+    deterministically in training too (VNet's fixed 0.5 skip dropout under
+    ``--dropout 0``). Restores the modules' state on exit."""
+
+    def __init__(self, model: nn.Module, generator: Optional[torch.Generator]):
+        self.mods = [m for m in model.modules() if hasattr(m, "generator")]
+        self.generator = generator
+
+    def __enter__(self) -> "stochastic":
+        self.saved = [(m.generator, m.deterministic) for m in self.mods]
+        for m in self.mods:
+            m.generator, m.deterministic = self.generator, self.generator is None
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for m, (g, det) in zip(self.mods, self.saved):
+            m.generator, m.deterministic = g, det

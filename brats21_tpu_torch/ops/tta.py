@@ -90,8 +90,11 @@ def deaug_flip_rot(y: torch.Tensor, flip: bool, angle: int) -> torch.Tensor:
 
 
 def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
-    """``fn`` on every tensor of a model output (a tensor, or nested
-    tuples/lists of them)."""
+    """``fn`` on every head of a model output (a tensor, or nested
+    tuples/lists of them); a dict of auxiliary loss scalars
+    (SegResNetVAE's ``{"vae_loss": s}``) passes as it is."""
+    if isinstance(tree, dict):
+        return tree
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map(fn, t) for t in tree)
     return fn(tree)

@@ -89,11 +89,32 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     served case; the model's BatchNorm statistics move, the attention
     gates' do not, both equal in ``last_model.pth``; the conv launches on
     the kernel's fp32 path counted (everything after the first BatchNorm
-    runs in fp32) and that path timed against cuDNN's fp32 conv.
+    runs in fp32) and that path timed against cuDNN's fp32 conv;
+18. the seven MONAI-backed names at their published widths (basic_unet
+    w48, segresnet(vae), highresnet and vnet at 32³; nnunet and unet_tr
+    at 64³), card vs CPU in fp32 as phase 3 holds the zoo, with the conv
+    kernel's launches a forward (18, 25, 31, 7, 0, 17, 10);
+19. nnunet at full width (filters 32…320, ``--norm instance``,
+    ``--optimizer novograd``) through the train CLI at 128³: an
+    uninterrupted 4-step run (17 conv launches a step); the same run in a
+    subprocess sent a real SIGTERM once its log shows the first step's
+    loss, which must exit 0 with a ``batch_cursor`` in its
+    ``last_model.pth``; its ``--resume``, whose last-step loss and
+    parameters are held to the uninterrupted run's (the tolerances
+    ``RESUME_LOSS_RTOL``, ``RESUME_PARAM_SHARE``); the run directory
+    served on the 240×240×155 case with ``--eval_bucket 32`` (the default
+    bucket must raise, as the JAX model does); and the conv kernel at
+    nnunet's 17 shapes, SegResNet's 8-channel and UNETR's 16-channel
+    layers at 128³ against its plain version, its bound and cuDNN;
+20. unet_tr at full width (ViT-B/16, feature size 16): 2 train steps at
+    128³ (10 conv launches a step), one case served through windows of
+    128³ (a full volume must raise); then 2 train steps of segresnetvae,
+    whose loss must equal the criterion's mean plus its finite VAE term.
 
 Phase 1 also builds the native case loader (``csrc/nifti_native.cc``, g++);
 phase 6 times decode + crop + normalise on its path and on the numpy path
-on the same case, and every case that phases 4-14, 16 and 17 load must go through it,
+on the same case, and every case that phases 4-14, 16, 17, 19 and 20 load must go
+through it,
 with no fallback to the numpy path; phase 15 counts its loads and the
 corrupt case's fallbacks exactly.
 
@@ -189,6 +210,46 @@ BATCHNORM_ARGS = ("--model", "att_unet", "--norm", "batch", "--width", "48", "--
                   "dice", "--optimizer", "ranger", "--decay_type", "cosine",
                   "--learning_rate", "0.0003")
 BATCHNORM_STEP_LAUNCHES = dict(conv3x3x3=17, evonorm_s0=0, edt_envelope=0)
+# the MONAI-backed names: the conv kernel runs every stride-1 dilation-1 3³
+# conv, narrow ones included (SegResNet's 8 channels, UNETR's 16); VNet's
+# convs are 5³ and 2³, HighResNet's dilated ones and every strided conv
+# stay on cuDNN
+MONAI_LAUNCHES = dict(basic_unet=18, segresnet=25, segresnetvae=31, highresnet=7, vnet=0,
+                      nnunet=17, unet_tr=10)
+# phase 18: (name, norm, act, side); nnunet needs a multiple of 32, unet_tr's
+# and segresnetvae's input is their patch
+MONAI_CHECKS = [("basic_unet", "instance", "leakyrelu", 32), ("segresnet", "group", "relu", 32),
+                ("segresnetvae", "group", "relu", 32), ("highresnet", "batch", "relu", 32),
+                ("vnet", "batch", "elu", 32), ("nnunet", "instance", "leakyrelu", 64),
+                ("unet_tr", "instance", "relu", 64)]
+# nnunet's 17 stride-1 3³ convs a forward at the levels of a patch: the input
+# block, the downs' second convs, the bottleneck's, and the decoders' (the
+# deepest takes the 640 concatenated channels)
+NNUNET_CONV_CALLS = [(1, 4, 32, 1), (1, 32, 32, 2), (1, 64, 32, 1), (2, 64, 64, 2),
+                     (2, 128, 64, 1), (3, 128, 128, 2), (3, 256, 128, 1), (4, 256, 256, 2),
+                     (4, 512, 256, 1), (5, 320, 320, 2), (5, 640, 320, 1), (6, 320, 320, 1)]
+# the narrowest layers: SegResNet's 8 channels (conv_init and the level-1
+# ResBlocks, 5 a forward) and UNETR's 16 (encoder1 and decoder2, 4), at 128³
+SEGRESNET_CONV_CALLS = [(1, 4, 8, 1), (1, 8, 8, 4)]
+UNETR_CONV_CALLS = [(1, 4, 16, 1), (1, 16, 16, 2), (1, 32, 16, 1)]
+# phase 19: nnunet as the nnU-Net layout trains it, with novograd
+NNUNET_ARGS = ("--model", "nnunet", "--norm", "instance", "--criterion", "dice",
+               "--optimizer", "novograd", "--decay_type", "cosine", "--learning_rate", "1e-3")
+NNUNET_STEP_LAUNCHES = dict(conv3x3x3=17, evonorm_s0=0, edt_envelope=0)
+# the resumed run against the uninterrupted one (stated before the first
+# chip run): the last step's loss within 1e-3 relative, and every tensor
+# within 5 % of how far the uninterrupted run moved it (cuDNN's backward may
+# sum in another order from run to run)
+RESUME_LOSS_RTOL = 1e-3
+RESUME_PARAM_SHARE = 0.05
+# phase 20: UNETR (ViT-B/16), served through windows of its patch, and
+# SegResNetVAE with its VAE term
+UNETR_ARGS = ("--model", "unet_tr", "--norm", "instance", "--criterion", "dice",
+              "--optimizer", "adamw", "--decay_type", "cosine", "--learning_rate", "1e-4")
+UNETR_STEP_LAUNCHES = dict(conv3x3x3=10, evonorm_s0=0, edt_envelope=0)
+SEGRESNETVAE_ARGS = ("--model", "segresnetvae", "--criterion", "dice", "--optimizer",
+                     "adamw", "--decay_type", "cosine", "--learning_rate", "1e-4")
+SEGRESNETVAE_STEP_LAUNCHES = dict(conv3x3x3=31, evonorm_s0=0, edt_envelope=0)
 
 
 def log(msg: str) -> None:
@@ -335,8 +396,20 @@ def check_evonorm(level_shape, dev, batch: int = 1) -> dict:
     return dict(rows=rows, **total)
 
 
+def output_heads(out) -> list:
+    """Every head of a model output: logits, ``(logits, [deep heads])``,
+    ``([refined, logits], [deep heads])`` or ``(logits, {"vae_loss": s})``
+    (the scalar last)."""
+    import torch
+    if isinstance(out, torch.Tensor):
+        return [out]
+    main, rest = out
+    heads = list(main) if isinstance(main, list) else [main]
+    return heads + (list(rest.values()) if isinstance(rest, dict) else list(rest))
+
+
 def check_model(dev, name: str = "equiunet_assp_evo", norm: str = "group",
-                side: int = 48) -> dict:
+                side: int = 48, act: str = "relu") -> dict:
     """One model at w48 on 1×4×side³, fp32: the card (kernels) against the
     CPU (plain versions), and the kernels' launches in the card's forward.
     EquiUnetASSPEvo's heads are held within atol = rtol = 1e-3; the model
@@ -352,7 +425,8 @@ def check_model(dev, name: str = "equiunet_assp_evo", norm: str = "group",
     from brats21_tpu_torch.models import get_model
     from brats21_tpu_torch.ops.kernels import conv3d, evonorm
     torch.manual_seed(SEED)
-    cpu_model = get_model({"model": name, "width": 48, "norm": norm, "act": "relu"}).eval()
+    cpu_model = get_model({"model": name, "width": 48, "norm": norm, "act": act,
+                           "patch_size": [side] * 3}).eval()
     gpu_model = copy.deepcopy(cpu_model).to(dev)
     x = np.random.default_rng(SEED).standard_normal((1, 4, side, side, side)).astype(np.float32)
     xt = torch.from_numpy(x).contiguous(memory_format=torch.channels_last_3d)
@@ -363,12 +437,8 @@ def check_model(dev, name: str = "equiunet_assp_evo", norm: str = "group",
         torch.cuda.synchronize()
         launches = (conv3d.launches - counts[0], evonorm.launches - counts[1])
 
-    def heads(out):
-        main, deeps = out
-        return (list(main) if isinstance(main, list) else [main]) + list(deeps)
-
     diffs, scales, elementwise = [], [], True
-    for i, (g, w_) in enumerate(zip(heads(got), heads(want))):
+    for i, (g, w_) in enumerate(zip(output_heads(got), output_heads(want))):
         g = g.float().cpu()
         if not torch.isfinite(g).all():
             raise AssertionError(f"model {name} head {i}: non-finite output on the card")
@@ -779,18 +849,20 @@ class StepProbe:
         from brats21_tpu_torch.learning.train_state import TrainStep
         self.tally = tally
         self.forward, self.backward, self.events, self.host_t = [], [], [], []
+        self.losses = []
         self.cls = TrainStep
         self.orig = (TrainStep.forward_loss, TrainStep.backward_update)
         probe = self
 
-        def forward_loss(step, state, img, target):
+        def forward_loss(step, state, img, target, *args):
             probe.host_t.append(time.time())
             tally.take()
             start = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = probe.orig[0](step, state, img, target)
+            out = probe.orig[0](step, state, img, target, *args)
             probe.forward.append(tally.take())
             probe.events.append([start])
+            probe.losses.append(out[0].detach())
             return out
 
         def backward_update(step, state, loss):
@@ -853,8 +925,8 @@ def run_training(data: Path, runs: Path, dev, criterion: str = "dice_hd",
     run_dir, = [p for p in runs.iterdir() if p.is_dir()]
     host_ms = [1e3 * (b - a) for a, b in zip(probe.host_t, probe.host_t[1:])]
     return dict(result=result, wall_s=wall, steps=len(step_ms), step_ms=step_ms,
-                val_cases=cases.cases,
-                step_ms_median_after_first=statistics.median(step_ms[1:]),
+                step_losses=[float(v) for v in probe.losses], val_cases=cases.cases,
+                step_ms_median_after_first=statistics.median(step_ms[1:] or step_ms),
                 host_interval_ms=host_ms,
                 forward_launches=probe.forward, backward_launches=probe.backward,
                 run_launches=probe.total_launches(),
@@ -1409,10 +1481,10 @@ def batchnorm_phase(work: Path, train_data: Path, data: Path, served_padded, dev
     saved = {}
     orig_write = CheckpointManager._write
 
-    def write(manager, name, state, epoch, value):
+    def write(manager, name, state, epoch, value, *args):
         saved[name] = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()
                        if k.endswith(("running_mean", "running_var"))}
-        return orig_write(manager, name, state, epoch, value)
+        return orig_write(manager, name, state, epoch, value, *args)
 
     CheckpointManager._write = write
     dtypes = DtypeTally()
@@ -1473,6 +1545,286 @@ def batchnorm_phase(work: Path, train_data: Path, data: Path, served_padded, dev
         f"statistics unmoved, all equal in last_model.pth; conv launches by dtype: train "
         f"{train_dtypes}, served case {served_dtypes}; served case {served['case_s'][0]:.3f}s; "
         f"in {res['phase_s']:.1f}s")
+    return res
+
+
+def monai_zoo_phase(dev) -> dict:
+    """Phase 18: the seven MONAI-backed names at their published widths,
+    card against CPU in fp32 (each head within 1e-3 of its largest
+    magnitude, as phase 3 holds the zoo), with the conv kernel's launches a
+    forward."""
+    import torch
+    t0 = time.time()
+    res = {}
+    for name, norm, act, side in MONAI_CHECKS:
+        r = res[name] = check_model(dev, name, norm, side, act)
+        if r["launches"] != [MONAI_LAUNCHES[name], 0]:
+            raise AssertionError(f"model {name}: launches {r['launches']} a forward, want "
+                                 f"[{MONAI_LAUNCHES[name]}, 0]")
+    torch.cuda.empty_cache()
+    log(f"phase 18 MONAI-backed zoo card vs CPU: {time.time() - t0:.1f}s")
+    return res
+
+
+def cases_dir(work: Path, train_data: Path, name: str, n: int) -> Path:
+    """A folder of links to the first ``n`` of phase 9's cases."""
+    out = work / name
+    out.mkdir()
+    for case in sorted(p for p in train_data.iterdir() if p.is_dir())[:n]:
+        (out / case.name).symlink_to(case, target_is_directory=True)
+    return out
+
+
+def check_step_launches(run: dict, want: dict, what: str) -> None:
+    for i, (fwd, bwd) in enumerate(zip(run["forward_launches"], run["backward_launches"])):
+        if fwd != want or any(bwd.values()):
+            raise AssertionError(f"{what} step {i}: forward launches {fwd} (want {want}), "
+                                 f"backward {bwd} (want none)")
+    if not all(math.isfinite(v) for v in run["step_losses"]):
+        raise AssertionError(f"{what}: step losses {run['step_losses']}")
+
+
+def sigterm_run(train_data: Path, runs: Path) -> dict:
+    """The train CLI in a subprocess, sent a real SIGTERM once its log shows
+    the first step's loss (step 2 running): it must save a mid-epoch
+    ``last_model.pth`` with a ``batch_cursor`` and exit 0."""
+    import signal
+    import threading
+
+    import torch
+    argv = [sys.executable, "-m", "brats21_tpu_torch.cli.main_train", "--train_data_path",
+            str(train_data), "--save_path", str(runs), "--device", "0", *NNUNET_ARGS,
+            "--epochs", "1", "--num_workers", "2", "--patch_size", *map(str, PATCH),
+            "--no_tensorboard", "--fold", "None", "--log_train_interval", "1"]
+    proc = subprocess.Popen(argv, cwd=str(Path(__file__).resolve().parent), text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    lines, sent = [], {}
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if "Epoch: [1][1/" in line and not sent:
+                sent["t"] = time.time()
+                proc.send_signal(signal.SIGTERM)
+
+    reader = threading.Thread(target=read, daemon=True)
+    t0 = time.time()
+    reader.start()
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=30)
+    if not sent or rc != 0:
+        raise AssertionError(f"SIGTERM run: signal sent {bool(sent)}, exit code {rc}; last "
+                             f"lines: {lines[-15:]}")
+    run_dir, = [p for p in runs.iterdir() if p.is_dir()]
+    payload = torch.load(run_dir / "last_model.pth", map_location="cpu", weights_only=True)
+    cursor = int(payload.get("batch_cursor", 0))
+    if not cursor or int(payload["epoch"]) != 0:
+        raise AssertionError(f"SIGTERM run: last_model.pth has epoch {payload['epoch']}, "
+                             f"batch_cursor {cursor}; lines: {lines[-15:]}")
+    stops = [ln for ln in lines if "preempted after epoch" in ln]
+    log(f"phase 19 SIGTERM run: signal {sent['t'] - t0:.1f}s after start, exit 0 in "
+        f"{time.time() - t0:.1f}s, last_model.pth epoch 0, batch_cursor {cursor}: {stops}")
+    return dict(run_dir=str(run_dir), batch_cursor=cursor, exit_code=rc,
+                signal_after_s=sent["t"] - t0, wall_s=time.time() - t0)
+
+
+def compare_resumed(whole_dir: Path, resumed_dir: Path, cfg: dict) -> dict:
+    """The resumed run's ``last_model.pth`` against the uninterrupted run's:
+    every tensor within ``RESUME_PARAM_SHARE`` of the uninterrupted run's
+    movement from the seeded initial weights."""
+    import torch
+    from brats21_tpu_torch.config import TrainConfig
+    from brats21_tpu_torch.models import get_model
+    torch.manual_seed(TrainConfig().seed)
+    init = get_model(cfg).state_dict()
+    whole = torch.load(whole_dir / "last_model.pth", map_location="cpu", weights_only=True)
+    resumed = torch.load(resumed_dir / "last_model.pth", map_location="cpu",
+                         weights_only=True)
+    worst, moved = 0.0, 0
+    for key, w in whole["model"].items():
+        if not w.is_floating_point():
+            continue
+        move = (w - init[key]).norm().item()
+        diff = (resumed["model"][key] - w).norm().item()
+        moved += move > 0
+        share = diff / max(move, 1e-12)
+        if diff > RESUME_PARAM_SHARE * move + 1e-7:
+            raise AssertionError(f"resumed {key}: |resumed - whole| {diff:.3g} over "
+                                 f"{RESUME_PARAM_SHARE} of its movement {move:.3g}")
+        worst = max(worst, share if move > 0 else 0.0)
+    return dict(worst_share_of_movement=worst, tensors_moved=moved,
+                epochs=(int(whole["epoch"]), int(resumed["epoch"])))
+
+
+def nnunet_phase(work: Path, train_data: Path, data: Path, dev) -> dict:
+    """Phase 19: nnunet at full width (filters 32…320, ``--norm instance``)
+    through the train CLI at 128³ with ``--optimizer novograd``: an
+    uninterrupted 4-step run; the same run in a subprocess stopped by a real
+    SIGTERM mid-epoch (exit 0, ``batch_cursor`` in ``last_model.pth``); its
+    ``--resume``, held to the uninterrupted run; then the run directory
+    served on the 240×240×155 case as the JAX package serves nnunet
+    (``--eval_bucket 32``; the default bucket fails the skip concatenation,
+    as there); and the conv kernel at nnunet's 17 shapes and at SegResNet's
+    and UNETR's narrow layers, at 128³, against its bound and cuDNN."""
+    import torch
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    whole = run_training(train_data, work / "runs_nnunet", dev, model_args=NNUNET_ARGS)
+    if whole["steps"] != 4:
+        raise AssertionError(f"nnunet ran {whole['steps']} steps, not 4")
+    check_step_launches(whole, NNUNET_STEP_LAUNCHES, "nnunet")
+    whole["step_launches"] = whole["forward_launches"][0]
+    stopped = sigterm_run(train_data, work / "runs_nnunet_sigterm")
+    resumed = run_training(train_data, work / "runs_nnunet_sigterm", dev,
+                           model_args=NNUNET_ARGS,
+                           extra=("--fold", "None", "--resume",
+                                  str(Path(stopped["run_dir"]) / "last_model.pth")))
+    if resumed["steps"] != 4 - stopped["batch_cursor"] or resumed["result"][
+            "global_step"] != 4:
+        raise AssertionError(f"resume from batch {stopped['batch_cursor']}: "
+                             f"{resumed['steps']} steps, global step "
+                             f"{resumed['result']['global_step']}")
+    check_step_launches(resumed, NNUNET_STEP_LAUNCHES, "nnunet resumed")
+    loss_w, loss_r = whole["step_losses"][-1], resumed["step_losses"][-1]
+    if not abs(loss_r - loss_w) <= RESUME_LOSS_RTOL * abs(loss_w):
+        raise AssertionError(f"resumed last-step loss {loss_r} vs uninterrupted {loss_w}")
+    held = compare_resumed(Path(whole["run_dir"]), Path(stopped["run_dir"]),
+                           {"model": "nnunet", "norm": "instance"})
+    out = work / "out_nnunet"
+    base = ["--config", str(Path(whole["run_dir"]) / "config.yaml"), "--on", "test",
+            "--input", str(data), "--device", "0"]
+    try:
+        run_cli(base + ["--output", str(work / "out_nnunet_bucket8")], dev)
+    except ValueError as err:
+        refused = str(err)
+    else:
+        raise AssertionError("nnunet served at --eval_bucket 8 on a padded case that is not "
+                             "a multiple of 32")
+    served = run_cli(base + ["--eval_bucket", "32", "--output", str(out)], dev)
+    case, = served["cases"]
+    if case["launches"] != NNUNET_STEP_LAUNCHES or any(s % 32 for s in case["padded"]):
+        raise AssertionError(f"nnunet served case: launches {case['launches']}, padded "
+                             f"{case['padded']}")
+    check_segmentation(out / "Inference_segmentations_test" / "BraTS2021_00000.nii.gz")
+    levels = lambda level: tuple(s // 2 ** (level - 1) for s in PATCH)  # noqa: E731
+    conv = check_conv(levels, dev, calls=NNUNET_CONV_CALLS)
+    conv_segresnet = check_conv(levels, dev, calls=SEGRESNET_CONV_CALLS)
+    conv_unetr = check_conv(levels, dev, calls=UNETR_CONV_CALLS)
+    torch.cuda.empty_cache()
+    for run in (whole, resumed):
+        run.pop("forward_launches")
+        run.pop("backward_launches")
+    res = dict(train=whole, sigterm=stopped, resumed=resumed, resume_held=held,
+               refused_bucket8=refused, served=dict(
+                   case_s=served["case_s"], wall_s=served["wall_s"], padded=case["padded"],
+                   launches=case["launches"], peak_bytes=served["peak_bytes"]),
+               conv_train_forward=conv, conv_segresnet_8ch=conv_segresnet,
+               conv_unetr_16ch=conv_unetr, phase_s=time.time() - t0)
+    log(f"phase 19 nnunet (novograd): steps {[round(t, 1) for t in whole['step_ms']]} ms "
+        f"(median after the first {whole['step_ms_median_after_first']:.1f}), losses "
+        f"{[round(v, 4) for v in whole['step_losses']]}, peak "
+        f"{whole['peak_bytes'] / 2**30:.2f} GiB; SIGTERM at batch {stopped['batch_cursor']}, "
+        f"resumed {resumed['steps']} steps, last loss {loss_r:.6f} vs {loss_w:.6f}, tensors "
+        f"within {held['worst_share_of_movement']:.3g} of their movement; served case "
+        f"{served['case_s'][0]:.3f}s (padded {case['padded']}, wall {served['wall_s']:.2f}s, "
+        f"peak {served['peak_bytes'] / 2**30:.2f} GiB); conv a 128³ train forward "
+        f"{conv['ms']:.3f} ms (bound {conv['bound_ms']:.3f}, cuDNN {conv['library_ms']:.3f}); "
+        f"SegResNet 8-channel layers {conv_segresnet['ms']:.3f} ms (bound "
+        f"{conv_segresnet['bound_ms']:.3f}, cuDNN {conv_segresnet['library_ms']:.3f}); UNETR "
+        f"16-channel {conv_unetr['ms']:.3f} ms (bound {conv_unetr['bound_ms']:.3f}, cuDNN "
+        f"{conv_unetr['library_ms']:.3f}); in {res['phase_s']:.1f}s")
+    return res
+
+
+def unetr_phase(work: Path, train_data: Path, data: Path, dev) -> dict:
+    """Phase 20: unet_tr at full width (ViT-B/16: hidden 768, 12 layers, 12
+    heads, MLP 3072; feature size 16) through the train CLI, 2 steps at
+    128³, then one case served through sliding windows of 128³ (a full
+    volume fails on the position embedding, as in the JAX package); and 2
+    steps of segresnetvae, whose VAE term must be finite and added to the
+    criterion's mean in every step."""
+    import torch
+    from brats21_tpu_torch.learning import train_state
+    from brats21_tpu_torch.ops.sliding_window import window_plan
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    two = cases_dir(work, train_data, "two_cases", 2)
+    train = run_training(two, work / "runs_unetr", dev, model_args=UNETR_ARGS)
+    if train["steps"] != 2:
+        raise AssertionError(f"unet_tr ran {train['steps']} steps, not 2")
+    check_step_launches(train, UNETR_STEP_LAUNCHES, "unet_tr")
+    train["step_launches"] = train["forward_launches"][0]
+    run_dir = Path(train["run_dir"])
+    base = ["--config", str(run_dir / "config.yaml"), "--on", "test", "--input", str(data),
+            "--device", "0"]
+    try:
+        run_cli(base + ["--output", str(work / "out_unetr_full")], dev)
+    except ValueError as err:
+        refused = str(err)
+    else:
+        raise AssertionError("unet_tr served a full volume")
+    out = work / "out_unetr"
+    served = run_cli(base + ["--sliding_window_inference", "--sliding_window_size",
+                             *map(str, PATCH), "--output", str(out)], dev)
+    case, = served["cases"]
+    _, _, starts = window_plan(case["padded"], PATCH)
+    batches = -(-len(starts) // SW_BATCH)
+    want = {k: batches * v for k, v in UNETR_STEP_LAUNCHES.items()}
+    if case["launches"] != want:
+        raise AssertionError(f"unet_tr served case: launches {case['launches']} != {want} "
+                             f"({len(starts)} windows)")
+    check_segmentation(out / "Inference_segmentations_test" / "BraTS2021_00000.nii.gz")
+
+    vae_terms = []
+    orig = train_state.deep_supervision_loss
+
+    def loss_with_vae(criterion, outputs, target):
+        total = orig(criterion, outputs, target)
+        seg, aux = outputs
+        crit = orig(criterion, seg, target)
+        vae_terms.append((total.detach(), crit.detach(), aux["vae_loss"].detach()))
+        return total
+
+    train_state.deep_supervision_loss = loss_with_vae
+    dtypes = DtypeTally()
+    try:
+        vae = run_training(two, work / "runs_segresnetvae", dev, model_args=SEGRESNETVAE_ARGS)
+        vae_dtypes = dtypes.take()
+    finally:
+        dtypes.close()
+        train_state.deep_supervision_loss = orig
+    if vae["steps"] != 2 or len(vae_terms) != 2:
+        raise AssertionError(f"segresnetvae: {vae['steps']} steps, {len(vae_terms)} losses")
+    check_step_launches(vae, SEGRESNETVAE_STEP_LAUNCHES, "segresnetvae")
+    vae["step_launches"] = vae["forward_launches"][0]
+    terms = [(float(t), float(c), float(v)) for t, c, v in vae_terms]
+    for total, crit, term in terms:
+        if not (math.isfinite(term) and abs(total - (crit + term)) <= 1e-6 * max(1.0, abs(total))):
+            raise AssertionError(f"segresnetvae loss {total} != criterion {crit} + VAE {term}")
+    torch.cuda.empty_cache()
+    for run in (train, vae):
+        run.pop("forward_launches")
+        run.pop("backward_launches")
+    res = dict(train=train, refused_full_volume=refused, served=dict(
+                   case_s=served["case_s"], wall_s=served["wall_s"], padded=case["padded"],
+                   windows=len(starts), window_batches=batches, launches=case["launches"],
+                   peak_bytes=served["peak_bytes"]),
+               segresnetvae=dict(train=vae, loss_criterion_vae=terms,
+                                 conv_launches_by_dtype=vae_dtypes),
+               phase_s=time.time() - t0)
+    log(f"phase 20 unet_tr (ViT-B/16): steps {[round(t, 1) for t in train['step_ms']]} ms, "
+        f"losses {[round(v, 4) for v in train['step_losses']]}, peak "
+        f"{train['peak_bytes'] / 2**30:.2f} GiB; served case {served['case_s'][0]:.3f}s through "
+        f"{len(starts)} windows ({batches} batches, {case['launches']['conv3x3x3']} conv "
+        f"launches; wall {served['wall_s']:.2f}s, peak {served['peak_bytes'] / 2**30:.2f} GiB); "
+        f"segresnetvae steps {[round(t, 1) for t in vae['step_ms']]} ms, loss = criterion + "
+        f"VAE {terms}, conv launches by dtype {vae_dtypes}, peak "
+        f"{vae['peak_bytes'] / 2**30:.2f} GiB; in {res['phase_s']:.1f}s")
     return res
 
 
@@ -1752,6 +2104,17 @@ def main() -> int:
     batchnorm = batchnorm_phase(work, train_data, data, padded, dev)
     take_native(17, cli=True)
 
+    # 18. the MONAI-backed names card vs CPU
+    monai = monai_zoo_phase(dev)
+
+    # 19. nnunet with novograd: train, SIGTERM, resume, serve
+    nnunet = nnunet_phase(work, train_data, data, dev)
+    take_native(19, cli=True)
+
+    # 20. unet_tr trained and served through windows; segresnetvae's VAE term
+    unetr = unetr_phase(work, train_data, data, dev)
+    take_native(20, cli=True)
+
     sliding_case, = ensemble["sliding"]["cases"]
     kernel_rows = []
     for name, route, source, replaces, tolerance, res, res_train, ms_per in (
@@ -1787,7 +2150,13 @@ def main() -> int:
                        model1_train_step=MODEL1_STEP_LAUNCHES[name],
                        model1_case=model1["serve"]["plain"]["launches"][name],
                        model1_case_tta=model1["serve"]["tta"]["launches"][name],
-                       batchnorm_att_unet_train_step=BATCHNORM_STEP_LAUNCHES[name]),
+                       batchnorm_att_unet_train_step=BATCHNORM_STEP_LAUNCHES[name],
+                       nnunet_train_step=nnunet["train"]["step_launches"][name],
+                       nnunet_case=nnunet["served"]["launches"][name],
+                       unet_tr_train_step=unetr["train"]["step_launches"][name],
+                       unet_tr_case=unetr["served"]["launches"][name],
+                       segresnetvae_train_step=unetr["segresnetvae"]["train"][
+                           "step_launches"][name]),
                    shapes=res["rows"])
         if name == "conv3x3x3":
             row["model1"] = {
@@ -1800,6 +2169,14 @@ def main() -> int:
                 train=batchnorm["conv_launches_train"],
                 served_case=batchnorm["conv_launches_served"])
             row["fp32_path_shapes"] = batchnorm["fp32_conv"]
+            row["monai_zoo_128"] = {
+                k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                      "max_abs_err", "rows")}
+                for k, v in (("nnunet_train_forward", nnunet["conv_train_forward"]),
+                             ("segresnet_8ch_layers", nnunet["conv_segresnet_8ch"]),
+                             ("unetr_16ch_layers", nnunet["conv_unetr_16ch"]))}
+            row["monai_zoo_launches_a_forward"] = {
+                k: v["launches"][0] for k, v in monai.items()}
         if "scan_bound_ms" in res:
             row["scan_bound_ms"] = res["scan_bound_ms"]
             row["full_case_edt_sq"] = dict(ms=res["full_case_ms"],
@@ -1822,7 +2199,8 @@ def main() -> int:
                    trained_served=served, train_step_split_ms=step_split,
                    boundary=boundary, validation=val, val_case_split=val_split,
                    ensemble=ensemble, native_loads=native_counts, docker=docker, watch=watch,
-                   zoo_models=zoo, model1=model1, batchnorm=batchnorm,
+                   zoo_models=zoo, model1=model1, batchnorm=batchnorm, monai_zoo=monai,
+                   nnunet=nnunet, unetr=unetr,
                    total_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))
     shutil.rmtree(work, ignore_errors=True)

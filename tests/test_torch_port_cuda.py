@@ -5,7 +5,9 @@ not a multiple of the tile; EDT lines of odd length, longer than a block,
 on every axis, and hand-made edge lines), the EDT mask pass, the batched
 HD loss and the loader's distance map, the trainable conv / EvoNorm
 against autograd of their plain versions (one conv applied three times
-too), the model zoo's conv shapes, Model 1 and R2Unet, and the sliding
+too), the model zoo's conv shapes (the MONAI-backed names' at the levels
+of a 128³ patch too), Model 1, R2Unet and the seven MONAI-backed names, and
+the sliding
 window and a dice_hd validation loss on the card against the CPU. Marked ``cuda``: without a card every test
 skips. On a machine with one, from the repository root:
 
@@ -40,7 +42,15 @@ CONV_CASES = [((1, 6, 11, 7, 5), 9), ((2, 5, 16, 8, 4), 6), ((1, 4, 13, 17, 3), 
               # 384 and 768 channels, the last at Model 1's served 25×25×17
               # level), RefUnet's conv0 (3 -> 48) and conv_d0 (48 -> 3)
               ((1, 9, 10, 11, 96), 48), ((1, 7, 6, 5, 192), 96), ((1, 6, 5, 4, 384), 192),
-              ((1, 25, 25, 17, 768), 192), ((1, 5, 7, 6, 3), 48), ((1, 12, 10, 9, 48), 3)]
+              ((1, 25, 25, 17, 768), 192), ((1, 5, 7, 6, 3), 48), ((1, 12, 10, 9, 48), 3),
+              # the MONAI-backed zoo at the levels of a 128³ patch: SegResNet's
+              # 8 channels (C_in 4 and 8), UNETR's 16 (C_in 4, 16, 32), nnunet's
+              # 32, 64 and 320, with the 640 concatenated channels at 8³
+              ((1, 128, 128, 128, 4), 8), ((1, 128, 128, 128, 8), 8),
+              ((1, 128, 128, 128, 4), 16), ((1, 128, 128, 128, 16), 16),
+              ((1, 128, 128, 128, 32), 16), ((1, 128, 128, 128, 4), 32),
+              ((1, 128, 128, 128, 32), 32), ((1, 64, 64, 64, 64), 64),
+              ((1, 8, 8, 8, 640), 320), ((1, 4, 4, 4, 320), 320)]
 EVO_CASES = [(1, 5, 6, 7, 8), (2, 4, 4, 4, 24), (1, 10, 10, 10, 384), (2, 9, 9, 9, 96),
              (1, 33, 31, 29, 48),
              # 3 channels a group at a ragged row count; C = 48 over 10**6 rows;
@@ -193,6 +203,43 @@ def test_zoo_model_on_card_matches_cpu(dev, name):
     assert conv3d.launches - c0 == {"equiunet": 15, "r2unet": 45}[name]
     for g, w in [(got, want)] + list(zip(got_deeps, want_deeps)):
         torch.testing.assert_close(g.cpu(), w, atol=1e-3, rtol=1e-3)
+
+
+MONAI_ON_CARD = {"basic_unet": ({"width": 8, "norm": "instance"}, 32, 18),
+                 "segresnet": ({}, 32, 25), "segresnetvae": ({}, 32, 31),
+                 "highresnet": ({"norm": "batch"}, 24, 7), "vnet": ({"act": "elu"}, 32, 0),
+                 "nnunet": ({"norm": "instance"}, 32, 17),
+                 "unet_tr": ({"norm": "instance"}, 32, 10)}
+
+
+@pytest.mark.parametrize("name", sorted(MONAI_ON_CARD))
+def test_monai_zoo_model_on_card_matches_cpu(dev, name):
+    """The seven MONAI-backed names (their published widths; basic_unet at
+    width 8), fp32: the card against the CPU, every head (and
+    segresnetvae's VAE loss) within 1e-3 of its largest magnitude, with the
+    conv kernel's launches a forward."""
+    extra, side, launches = MONAI_ON_CARD[name]
+    cfg = {"model": name, "patch_size": [side] * 3, **extra}
+    torch.manual_seed(2)
+    cpu = get_model(cfg).eval()
+    card = get_model(cfg).eval()
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+    x = torch.randn((1, 4, side, side, side)).contiguous(memory_format=torch.channels_last_3d)
+    c0 = conv3d.launches
+    with torch.inference_mode():
+        want, got = cpu(x), card(x.to(dev))
+    assert conv3d.launches - c0 == launches
+
+    def heads(out):
+        if isinstance(out, torch.Tensor):
+            return [out]
+        main, rest = out
+        return [main] + (list(rest.values()) if isinstance(rest, dict) else list(rest))
+
+    for g, w in zip(heads(got), heads(want)):
+        scale = max(w.abs().max().item(), 1.0)
+        torch.testing.assert_close(g.cpu() / scale, w / scale, atol=1e-3, rtol=1e-3)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -155,9 +155,14 @@ def test_tta_combos_in_reference_order():
 
 
 def test_get_model_names_later_slices():
-    """The MONAI-backed names come with the model zoo's second part; an
-    unknown name is the reference's error."""
-    with pytest.raises(NameError, match="second part of the model zoo"):
-        get_model({"model": "segresnet", "width": 8})
+    """Every ``--model`` choice of the reference builds (the MONAI-backed
+    names since the model zoo's second part); an unknown name is the
+    reference's error."""
+    from brats21_tpu_torch.config import MODEL_CHOICES
+    assert len(MODEL_CHOICES) == 17
+    for name in MODEL_CHOICES:
+        model = get_model({"model": name, "width": 4, "norm": "instance",
+                           "patch_size": [32, 32, 32]})
+        assert sum(p.numel() for p in model.parameters()) > 0, name
     with pytest.raises(NameError, match="Not Supported"):
         get_model({"model": "nope"})

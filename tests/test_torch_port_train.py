@@ -200,7 +200,29 @@ def test_optimizer_follows_jax_for_13_steps(case):
     syncs), 3 steps per epoch so the schedule moves: every parameter within
     1e-6 + 1e-5·|p| of the optax chain's (fp32 rounding of the scalar
     factors differs: the port computes them in float64)."""
-    cfg = _cfg(**OPTIMIZER_CASES[case])
+    _follow_jax_for_13_steps(case, OPTIMIZER_CASES[case])
+
+
+NOVOGRAD_CASES = {
+    "novograd_wd": dict(optimizer="novograd", weight_decay=1e-2),
+    "novograd_clip": dict(optimizer="novograd", gradient_clipping=True, max_grad_norm=0.5,
+                          decay_type="cosine_warmup"),
+    "novograd_agc_accum": dict(optimizer="novograd", adaptive_gradient_clipping=True,
+                               gradient_accumulation_iter=2, weight_decay=1e-3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NOVOGRAD_CASES))
+def test_novograd_follows_optax_for_13_steps(case):
+    """``--optimizer novograd`` against ``optax.novograd(lr, b1=0.9,
+    b2=0.98, eps=1e-8, weight_decay=wd)`` through the JAX package's chain,
+    with global-norm clipping, and with AGC inside gradient accumulation:
+    the 13-step pattern and tolerance above."""
+    _follow_jax_for_13_steps(case, NOVOGRAD_CASES[case])
+
+
+def _follow_jax_for_13_steps(case, kw):
+    cfg = _cfg(**kw)
     rng = np.random.default_rng(7)
     init = [rng.standard_normal(shape).astype(np.float32) for *_, shape in _PARAMS]
     tx = jax_make_optimizer(cfg, 3)
@@ -239,11 +261,6 @@ def test_schedule_matches_jax(decay, swa):
     for step in range(0, 150, 3):
         np.testing.assert_allclose(got(step), float(want(jnp.asarray(step))),
                                    rtol=1e-6, atol=3e-10, err_msg=f"step {step}")
-
-
-def test_novograd_is_queued():
-    with pytest.raises(NotImplementedError, match="novograd"):
-        make_optimizer(_cfg(optimizer="novograd"), [torch.zeros(2, requires_grad=True)], 1)
 
 
 # ------------------------------------------------ train-step trajectory
