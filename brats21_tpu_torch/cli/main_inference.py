@@ -15,6 +15,15 @@ STAPLE and post-processing as asked, and write the NIfTI label maps.
 Runs on ``cuda:<--device>``; ``--device cpu`` runs on the host with the
 kernels' plain PyTorch versions. ``--watch --on test`` keeps serving the
 cases that land in ``--input`` (:class:`WatchServer`).
+
+Under ``torchrun`` (JAX ``main_inference.py:52-180``) the cases are
+striped over the nodes; under ``--watch`` each case goes to the node
+``crc32(patient_id) % nodes``, from one canonical first snapshot. Within a
+node the local ranks share each case's TTA combos, windows or STAPLE
+members, or take whole cases (``learning/engine.py``). The report rows
+merge across nodes, and only the primary writes ``Evaluation*.xlsx``.
+
+    torchrun --nproc_per_node 2 -m brats21_tpu_torch.cli.main_inference ...
 """
 
 from __future__ import annotations
@@ -24,10 +33,12 @@ import os
 import shutil
 import tempfile
 import time
+import zlib
 from typing import Dict, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .. import get_logger, set_main_logger
@@ -41,36 +52,14 @@ from ..learning.engine import Engine
 from ..learning.losses import make_criterion
 from ..models import get_model
 from ..ops import kernels
+from ..parallel import multihost
+from ..parallel.mesh import init_topology
 from ..utils.meter import AverageMeter
 from ..utils.reporting import EvaluationReport
 from ..utils.weights import load_reference_pth
 from .arguments import get_inference_args
 
 logger = get_logger("main_inference")
-
-
-def resolve_device(spec: str) -> torch.device:
-    """``--device``: a CUDA index (the reference's default "0") or "cpu".
-    A CUDA device on a host without CUDA raises: the port never falls back
-    to the CPU unasked. On CUDA, TF32 is turned off for cuDNN and matmuls,
-    so what the configuration runs in fp32 (``--no_amp``, the cuDNN convs'
-    grads, the loss) is fp32."""
-    if spec.strip().lower() == "cpu":
-        return torch.device("cpu")
-    try:
-        index = int(spec)
-    except ValueError:
-        raise ValueError(f"--device must be a CUDA index or 'cpu', got {spec!r}") from None
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {spec}: CUDA is not available on this host "
-            "(pass --device cpu to run on the CPU)")
-    if index >= torch.cuda.device_count():
-        raise RuntimeError(f"--device {spec}: only {torch.cuda.device_count()} "
-                           "CUDA device(s)")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda", index)
 
 
 def post_kwargs_from_cfg(cfg) -> dict:
@@ -107,14 +96,19 @@ def main(argv=None) -> Dict[str, AverageMeter]:
     config_dict, experience_name = get_inference_args(argv)
     members_ns = list(config_dict.values())
     cfg0 = members_ns[0]
-    device = resolve_device(cfg0.device)
+    topo = init_topology(cfg0.device)
+    device = topo.device
     if cfg0.save_path is None:
         raise ValueError("--output is needed")
     os.makedirs(cfg0.save_path, exist_ok=True)
-    logger = set_main_logger(os.path.join(cfg0.save_path, "logfile_inference.log"),
-                             verbosity=max(cfg0.verbosity, 1))
+    logger = set_main_logger(os.path.join(cfg0.save_path, "logfile_inference.log")
+                             if topo.primary else None, verbosity=max(cfg0.verbosity, 1))
     logger.info("device: %s%s", device, f" ({torch.cuda.get_device_name(device)})"
                 if device.type == "cuda" else "")
+    if topo.distributed:
+        logger.info("rank %d of %d (node %d of %d, local rank %d of %d), backend %s",
+                    topo.rank, topo.world_size, topo.node, topo.nodes, topo.local_rank,
+                    topo.local_size, topo.backend)
 
     # the first member's run config, with the inference flags (the
     # TrainConfig fields among them come through from_dict)
@@ -133,13 +127,26 @@ def main(argv=None) -> Dict[str, AverageMeter]:
         # discovered before the initial pass, so that --watch serves the
         # cases landing during that pass at its first poll
         records = discover_test_records(cfg0)
+        if topo.nodes > 1 and watch:
+            # one canonical snapshot across nodes (a case landing during
+            # discovery may show in one node's listing only), split by the
+            # owner hash the polls use
+            canonical: Dict[str, dict] = {}
+            for recs in multihost.gather_objects(records):
+                for r in recs:
+                    canonical.setdefault(r["patient_id"], r)
+            records = [canonical[k] for k in sorted(canonical)
+                       if owner(k, topo.nodes) == topo.node]
+        elif topo.nodes > 1:
+            records = multihost.shard_eval_records(records)
         loader = make_records_loader(records, cfg0)
-    if loader is None and not watch:      # --watch may start on an empty folder
+    # --watch may start on an empty folder; a node's stripe may be empty
+    if not watch and not multihost.any_rank(loader is not None):
         raise ValueError(f"no case found for --on {cfg0.on}")
     members = [load_member(ns, device) for ns in members_ns]
     logger.info("ensemble of %d member(s)", len(members))
 
-    engine = Engine(cfg, device, criterion=make_criterion(cfg))
+    engine = Engine(cfg, device, criterion=make_criterion(cfg), topo=topo)
     out_dir = os.path.join(cfg0.save_path, f"Inference_segmentations_{cfg0.on}")
     eval_kw = dict(use_tta=bool(cfg0.tta), perform_staple=bool(cfg0.perform_staple),
                    staple_threshold=cfg0.staple_threshold,
@@ -150,12 +157,18 @@ def main(argv=None) -> Dict[str, AverageMeter]:
     else:
         with_target = cfg0.on in ("val", "train")
         name = f"Evaluation_inference_{cfg0.on}{experience_name}"
-        report = EvaluationReport(autosave_dir=cfg0.save_path, name=name) if with_target \
-            else None
-        meters = engine.evaluate(members, loader, 0, save_seg=True, output_path=out_dir,
-                                 report=report, **eval_kw)
+        report = EvaluationReport(autosave_dir=cfg0.save_path if topo.primary else None,
+                                  name=name) if with_target else None
+        if loader is not None:
+            meters = engine.evaluate(members, loader, 0, save_seg=True, output_path=out_dir,
+                                     report=report, **eval_kw)
+        else:
+            meters = engine.empty_eval_meters()
         if report is not None:
-            report.save(cfg0.save_path)
+            multihost.merge_meters(meters)
+            multihost.merge_report_rows(report)
+            if topo.primary:
+                report.save(cfg0.save_path)
     logger.info("total time: %.1fs", time.time() - total_start)
     return meters
 
@@ -172,7 +185,11 @@ class WatchServer:
     charged an attempt only when it is plausibly its own fault (its files
     fail to decode, or a sibling succeeded in the same poll), and after
     ``BRATS21_WATCH_MAX_ATTEMPTS`` attempts (default 3) it is quarantined
-    for good."""
+    for good.
+
+    Across nodes each node serves the cases it owns (:func:`owner`); a
+    node's local ranks share each case, so its local rank 0 polls and
+    decides when to stop, and the others follow its word."""
 
     def __init__(self, engine: Engine, members: List[nn.Module],
                  cfg0: argparse.Namespace, out_dir: str, eval_kw: dict):
@@ -181,6 +198,16 @@ class WatchServer:
         self.seen: Set[str] = set()          # segmented, or quarantined for good
         self.attempts: Dict[str, int] = {}
         self.max_attempts = int(os.environ.get("BRATS21_WATCH_MAX_ATTEMPTS", "3"))
+
+    def agree(self, obj):
+        """Local rank 0's ``obj`` on every local rank of the node."""
+        topo = self.engine.topo
+        if topo.local_group is None:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=topo.node * topo.local_size,
+                                   group=topo.local_group)
+        return box[0]
 
     def segment(self, records: List[dict], save_seg: bool = True) -> None:
         self.engine.evaluate(self.members, make_records_loader(records, self.cfg0), 0,
@@ -284,12 +311,15 @@ class WatchServer:
         logger.info("watch mode: serving %s every %.1fs (%d case(s) done)",
                     cfg0.test_data_path, cfg0.watch_interval, len(self.seen))
         stop_file = cfg0.watch_stop_file
+        topo = self.engine.topo
         try:
-            while not (stop_file and os.path.exists(stop_file)):
+            while not self.agree(bool(stop_file and os.path.exists(stop_file))):
                 time.sleep(cfg0.watch_interval)
                 try:
                     new = [r for r in discover_test_records(cfg0)
-                           if r["patient_id"] not in self.seen]
+                           if r["patient_id"] not in self.seen
+                           and owner(r["patient_id"], topo.nodes) == topo.node]
+                    new = self.agree(new)
                     if new:
                         self.segment_batch(new)
                 except Exception:  # noqa: BLE001 — the server outlives a failed poll
@@ -308,5 +338,14 @@ def decodes_cleanly(rec: dict) -> bool:
         return False
 
 
+
+def owner(patient_id: str, nodes: int) -> int:
+    """The node that serves a case under ``--watch`` across nodes: a
+    stable hash, since the nodes' polls see a new case at different times
+    and index striping would give it to none or two."""
+    return zlib.crc32(patient_id.encode()) % nodes
+
+
 if __name__ == "__main__":
     main()
+    multihost.shutdown()

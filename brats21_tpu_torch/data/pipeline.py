@@ -6,12 +6,15 @@ the card computes the previous step or case; batches are numpy arrays that
 the engine copies to the device. The boundary criteria's distance maps are
 made on the run's device. A case decodes through the native C++ loader
 (``data/native.py``) and falls back to the numpy path without it. The split
-follows definer.py:583-628 (KFold(5, shuffle, seed)). Multi-host striping
-comes with a later slice.
+follows definer.py:583-628 (KFold(5, shuffle, seed)). Under ``torchrun``
+with several nodes the records are striped per node
+(``parallel/multihost.py``): the train records padded so every node takes
+the same steps, the eval and test records untrimmed.
 """
 
 from __future__ import annotations
 
+import copy
 import queue
 import threading
 from collections import deque
@@ -26,6 +29,7 @@ from .discovery import (MODALITIES, MODALITIES_WITH_SEG, create_database,
                         make_file_records)
 from . import native
 from .nifti import read_nifti
+from ..parallel.multihost import process_count, process_shard, shard_eval_records
 from .transforms import (augment_train_sample, brats_labels_to_multichannel,
                          compute_distance_map_fn, preprocess_case)
 
@@ -210,6 +214,13 @@ class EvalLoader:
     def __len__(self) -> int:
         return len(self.dataset)
 
+    def stripe(self, index: int, count: int) -> "EvalLoader":
+        """A loader over the cases ``index::count`` alone (case-parallel
+        evaluation: each rank decodes only its own cases)."""
+        ds = copy.copy(self.dataset)
+        ds.records = list(self.dataset.records[index::count])
+        return EvalLoader(ds, self.prefetch)
+
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         def make_item(i: int) -> Dict[str, Any]:
             return _collate([self.dataset[i]])
@@ -315,12 +326,26 @@ def make_train_loader(cfg: Any, train_files: Sequence[Dict],
 
 def make_train_val_loaders(cfg: Any, device: Any, train_in_val_mode: bool = False
                            ) -> Tuple[Optional[TrainLoader], Optional[EvalLoader]]:
-    """definer.py:438-527 (the JAX package's ``make_train_val_loaders``,
-    single process): the train loader, and the eval loader over the val
+    """definer.py:438-527 (the JAX package's ``make_train_val_loaders``):
+    this node's train loader, and the eval loader over the val
     cases (the train cases with ``train_in_val_mode``), whose samples carry
     the seg and, for the boundary criteria, its distance map made on
     ``device``."""
     train_files, val_files = create_train_val_records(cfg)
+    if process_count() > 1:
+        # each node loads its stripe: the train stripe padded to equal
+        # lengths (lock-step steps) and to whole batches; the eval stripe
+        # untrimmed (every case scored once), as it is in train_in_val_mode
+        if train_in_val_mode:
+            train_files = shard_eval_records(train_files)
+        else:
+            train_files = process_shard(train_files)
+            bs = max(int(cfg.batch_size), 1)
+            if train_files and len(train_files) % bs:
+                pad = bs - len(train_files) % bs
+                train_files = train_files + [train_files[i % len(train_files)]
+                                             for i in range(pad)]
+        val_files = shard_eval_records(val_files)
     train_loader = None
     if not train_in_val_mode:
         train_loader = make_train_loader(cfg, train_files, device)

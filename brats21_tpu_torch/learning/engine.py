@@ -22,6 +22,15 @@ prediction and target (Dice on the card, HD95 on the host), meters and the
 report take them, and the labels are un-padded, un-cropped and written.
 The loader decodes the next case in a background thread meanwhile; the
 JAX package's finish-stage thread is not ported.
+
+With several local ranks under ``torchrun`` (``parallel/mesh.py``) the
+node's ranks share the evaluation as the JAX package's local mesh does
+(engine.py:840-900): the TTA combos or the sliding windows of each case
+are striped over them (``parallel/distributed.py``); a homogeneous STAPLE
+ensemble's members are; and with none of TTA, sliding windows and STAPLE,
+whole cases are, with the meters and the report rows merged over the
+node's ranks afterwards. Each case is written once: by its rank when cases
+are striped, else by local rank 0.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .. import get_logger
@@ -42,6 +52,10 @@ from ..ops.postprocess import post_process
 from ..ops.sliding_window import sliding_window_inference
 from ..ops.staple import staple_multichannel
 from ..ops.tta import main_head, tree_map, tta_mean_probs
+from ..parallel import multihost
+from ..parallel.distributed import (LocalGroup, gather_members, sharded_sliding_window,
+                                    sharded_tta_probs)
+from ..parallel.mesh import Topology
 from ..utils.meter import AverageMeter, ProgressMeter
 from ..utils.metrics import compute_case_metrics
 from ..utils.reporting import EvaluationReport, TensorBoardLogger
@@ -70,15 +84,18 @@ class Engine:
     ``sliding_window_size``, ``eval_bucket``, ``key_metric``,
     ``additional_metrics``, ``log_val_interval`` and, for training,
     ``log_train_interval``, ``log_train_metrics`` and ``swa_start``.
-    ``criterion`` gives evaluation with a target its loss."""
+    ``criterion`` gives evaluation with a target its loss; ``topo`` the
+    node's local ranks that share each evaluation."""
 
     def __init__(self, cfg: Any, device: torch.device,
                  criterion: Optional[LossFn] = None,
-                 tb: Optional[TensorBoardLogger] = None):
+                 tb: Optional[TensorBoardLogger] = None,
+                 topo: Optional[Topology] = None):
         self.cfg = cfg
         self.device = device
         self.criterion = criterion
         self.tb = tb or TensorBoardLogger(None, enabled=False)
+        self.topo = topo or Topology(device=device)
         self.global_step = 0
         self.val_step = 0
         # the batch index where the last train_epoch stopped early, or None
@@ -92,6 +109,21 @@ class Engine:
         if self.device.type == "cuda":
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
+
+    def batch_to_device(self, batch: Dict[str, Any], part: slice = slice(None)
+                        ) -> Tuple[torch.Tensor, Any]:
+        """(image, target) of a train batch's ``part`` on the card as NCDHW
+        views in channels_last_3d memory: fp16 images (fp32 under
+        ``no_amp``), uint8 targets cast to fp32 there, and the boundary
+        criteria's (seg, distance_map) pair (engine.py:326-327)."""
+        wire = np.float32 if self.cfg.no_amp else np.float16
+        img = self.to_device(batch["img"][part].astype(wire)).permute(0, 4, 1, 2, 3)
+        target: Any = self.to_device(
+            batch["seg"][part].astype(np.uint8)).float().permute(0, 4, 1, 2, 3)
+        if "boundary" in self.cfg.criterion:
+            target = (target, self.to_device(
+                batch["distance_map"][part]).permute(0, 4, 1, 2, 3))
+        return img, target
 
     def train_epoch(self, state: TrainState, step: TrainStep, loader, epoch: int,
                     should_stop: Optional[Callable[[], bool]] = None,
@@ -136,24 +168,17 @@ class Engine:
                 self.tb.log_meters(self.global_step, [losses, gnorms],
                                    step_mode="train_step")
 
-        wire = np.float32 if cfg.no_amp else np.float16
         t0 = time.time()
         for i, batch in enumerate(loader, start=start_batch):
             if should_stop is not None and should_stop():
                 logger.info("train_epoch: stop requested at batch %d/%d", i, len(loader))
                 self.last_epoch_stop = i
                 break
-            # [B, X, Y, Z, C] → NCDHW views in channels_last_3d memory
-            img = self.to_device(batch["img"].astype(wire)).permute(0, 4, 1, 2, 3)
-            target: Any = self.to_device(
-                batch["seg"].astype(np.uint8)).float().permute(0, 4, 1, 2, 3)
-            if "boundary" in cfg.criterion:
-                # the boundary criteria's (seg, distance_map) pair
-                # (engine.py:326-327)
-                target = (target, self.to_device(
-                    batch["distance_map"]).permute(0, 4, 1, 2, 3))
+            part = self._batch_part(batch["img"].shape[0])
+            img, target = self.batch_to_device(batch, part)
             data_time.update(time.time() - t0)
-            metrics = step(state, img, target, self.global_step)
+            metrics = step(state, img, target, self.global_step,
+                           sharded=self.topo.distributed and part != slice(None))
             self.global_step += 1
             if pending is not None:
                 collect(pending)          # step i is already enqueued
@@ -161,11 +186,32 @@ class Engine:
             t0 = time.time()
         if pending is not None:
             collect(pending)
+        if self.topo.distributed:
+            # the global batch's loss: the ranks' slices are equal, so the
+            # mean over the ranks of their means
+            multihost.merge_meters({"loss": losses}, dist.group.WORLD)
         self.tb.log_meters(epoch, [losses], step_mode="train_epoch")
         if cfg.swa_start and epoch > cfg.swa_start and self.last_epoch_stop is None:
             swa_update(state)
         return {"loss": losses, "grad_norm": gnorms, "batch_time": batch_time,
                 "data_time": data_time}
+
+    def _batch_part(self, n: int) -> slice:
+        """This rank's slice of a node batch of ``n`` (all of it in a
+        one-process run, or when ``n`` does not divide over the node's
+        ranks: replicated, as the JAX package's ``_put_batch``, which a
+        global batch across nodes must not be)."""
+        if not self.topo.distributed:
+            return slice(None)
+        part = self.topo.shard_batch(n)
+        if part is None:
+            if self.topo.nodes > 1:
+                raise ValueError(
+                    f"a node batch of {n} does not divide over {self.topo.local_size} "
+                    "local ranks: across nodes the global batch must shard; pick a "
+                    "--batch_size divisible by the local rank count")
+            return slice(None)
+        return part
 
     # --------------------------------------------------------------- evaluate
 
@@ -198,14 +244,17 @@ class Engine:
             list(cfg.key_metric) + [m for m in cfg.additional_metrics if m]))
 
     def member_probs(self, model: nn.Module, img: torch.Tensor, use_tta: bool = False,
-                     sliding: bool = False, target: Any = None
+                     sliding: bool = False, target: Any = None,
+                     local: Optional[LocalGroup] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(fp32 sigmoid probabilities [1, X, Y, Z, classes], loss) of one
         member (engine.py:431-498): plain, TTA, sliding window, or sliding
         × TTA. With a ``target`` (NCDHW, or the boundary criteria's pair)
         the loss is ``deep_supervision_loss`` of the member's output: with
         the deep heads for the plain and TTA forwards (:492-498), of the
-        stitched main logits for the sliding window (:455-467); else 0."""
+        stitched main logits for the sliding window (:455-467); else 0.
+        With ``local`` (the node's ranks, all calling) the sliding windows
+        are striped over the ranks, else the TTA combos (engine.py:432-452)."""
         cfg = self.cfg
         x = img.to(torch.float32 if cfg.no_amp else torch.bfloat16)
         criterion = self.criterion if target is not None else None
@@ -214,12 +263,19 @@ class Engine:
         if sliding:
             roi = tuple(cfg.sliding_window_size)
 
+            def predictor(w):
+                return forward_channels_last(model, w)
+
             def apply(v):
-                return sliding_window_inference(
-                    v, roi, lambda w: forward_channels_last(model, w), sw_batch_size=2)
+                if local is not None:
+                    return sharded_sliding_window(v, roi, predictor, local, cfg.num_classes)
+                return sliding_window_inference(v, roi, predictor, sw_batch_size=2)
         else:
             def apply(v):
                 return forward_channels_last(model, v, with_deep=target is not None)
+        if use_tta and local is not None and not sliding:
+            return sharded_tta_probs(apply, x, local, criterion=criterion, target=target,
+                                     num_classes=cfg.num_classes)
         if use_tta:
             return tta_mean_probs(apply, x, criterion=criterion, target=target,
                                   num_classes=cfg.num_classes)
@@ -232,11 +288,16 @@ class Engine:
     def eval_case(self, members: List[nn.Module], batch: Dict[str, Any],
                   use_tta: bool = False, sliding: bool = False,
                   perform_staple: bool = False, staple_threshold: float = 0.5,
-                  post_kwargs: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+                  post_kwargs: Optional[Dict[str, Any]] = None,
+                  local: Optional[LocalGroup] = None,
+                  member_stripe: bool = False) -> Dict[str, Any]:
         """One case through every member: the fused, brain-masked
         prediction [1, X, Y, Z, 3] on the card, the padded channels-last
         target (None without a seg), the members' mean loss (None without a
-        seg) and the pads."""
+        seg) and the pads. With ``local`` every rank of the node calls it
+        for the case: each member's TTA combos or windows are striped over
+        the ranks, or with ``member_stripe`` the members themselves
+        (``engine.py:866-894``)."""
         post_kwargs = post_kwargs or {}
         padded, p_b, p_a = self._pad_case(batch["img"][0], use_tta, self.cfg.eval_bucket)
         img = torch.from_numpy(padded.astype(np.float16)).to(self.device)[None]
@@ -249,9 +310,19 @@ class Engine:
             if "boundary" in self.cfg.criterion and "distance_map" in batch:
                 dm = torch.from_numpy(self._pad_with(batch["distance_map"][0], p_b, p_a))
                 target = (target, dm.to(self.device)[None].permute(0, 4, 1, 2, 3))
+        if member_stripe:
+            group, rank, size = local
+            mine = list(range(rank, len(members), size))
+            results = [self.member_probs(members[m], img, use_tta, sliding, target)
+                       for m in mine]
+            shape = (1, *img.shape[1:4], self.cfg.num_classes)
+            per_member = gather_members(len(members), mine, results, shape, self.device,
+                                        local)
+        else:
+            per_member = (self.member_probs(model, img, use_tta, sliding, target, local)
+                          for model in members)
         probs_sum, loss_sum, posts = None, 0.0, []
-        for model in members:
-            probs, loss = self.member_probs(model, img, use_tta, sliding, target)
+        for probs, loss in per_member:
             loss_sum = loss_sum + loss
             if perform_staple:
                 posts.append(post_process(probs, **post_kwargs))
@@ -281,20 +352,32 @@ class Engine:
         and metric meters and ``report``; with ``save_seg`` every case's
         labels go to ``output_path``. Returns the meters; ``batch_time``
         holds each case's seconds from the decoded case to its written
-        NIfTI."""
+        NIfTI. With several local ranks (``topo``) every rank of the node
+        calls it with the same loader, shares the work
+        (:meth:`_parallel_mode`) and returns the node's meters and rows."""
         cfg = self.cfg
         metrics_wanted = self._wanted_metrics()
-        losses = AverageMeter("loss", ":.4e")
-        batch_time = AverageMeter("time", ":6.3f")
-        data_time = AverageMeter("data", ":6.3f")
-        metric_meters = {m: AverageMeter(m, ":.4f") for m in metrics_wanted}
-        progress = ProgressMeter(len(loader), [batch_time, data_time, losses,
-                                               *metric_meters.values()],
-                                 prefix=f"Epoch Valid: [{epoch}]")
+        meters = self.empty_eval_meters()
+        losses, batch_time, data_time = meters["loss"], meters["batch_time"], meters["data_time"]
+        metric_meters = {m: meters[m] for m in metrics_wanted}
         check_eval_bucket(cfg.eval_bucket)
         sliding = bool(getattr(cfg, "sliding_window_inference", False))
         if save_seg and not output_path:
             raise ValueError("if save_seg, output_path is needed")
+        case_parallel, member_stripe = self._parallel_mode(members, use_tta, sliding,
+                                                           perform_staple)
+        topo = self.topo
+        local = (topo.local_group, topo.local_rank, topo.local_size)
+        if case_parallel:
+            # each rank takes cases local_rank::local_size, alone
+            loader = (loader.stripe(topo.local_rank, topo.local_size)
+                      if hasattr(loader, "stripe") else
+                      [b for i, b in enumerate(loader) if i % topo.local_size == topo.local_rank])
+        collective = topo.local_size > 1 and not case_parallel
+        writes = not collective or topo.local_rank == 0
+        progress = ProgressMeter(len(loader), [batch_time, data_time, losses,
+                                               *metric_meters.values()],
+                                 prefix=f"Epoch Valid: [{epoch}]")
         n_cases = len(loader)
         t_wait = time.time()
         for done, batch in enumerate(loader, start=1):
@@ -302,7 +385,9 @@ class Engine:
             data_time.update(t0 - t_wait)
             pid = batch["patient_id"][0]
             case = self.eval_case(members, batch, use_tta, sliding,
-                                  perform_staple, staple_threshold, post_kwargs)
+                                  perform_staple, staple_threshold, post_kwargs,
+                                  local=local if collective else None,
+                                  member_stripe=member_stripe)
             if case["loss"] is not None:
                 losses.update(case["loss"])
                 # metrics on the padded prediction and target (engine.py:905-914)
@@ -312,7 +397,7 @@ class Engine:
                     meter.update(np.asarray(case_metrics[name.title()]).ravel())
                 if report is not None:
                     report.add(pid, case_metrics)
-            if save_seg:
+            if save_seg and writes:
                 case_dir = output_path
                 if getattr(cfg, "create_patient_dir", False):
                     case_dir = os.path.join(output_path, pid)
@@ -326,10 +411,65 @@ class Engine:
                 self.tb.log_meters(self.val_step, [losses, *metric_meters.values()],
                                    step_mode=f"{step_mode}_step")
             t_wait = time.time()
+        if case_parallel:
+            # the node's meters and rows on every local rank (collectives)
+            multihost.merge_meters(meters, topo.local_group)
+            if report is not None:
+                multihost.merge_report_rows(report, topo.local_group)
         self.tb.log_meters(epoch, [losses, *metric_meters.values()],
                            step_mode=f"{step_mode}_epoch")
-        return {"loss": losses, "batch_time": batch_time, "data_time": data_time,
-                **metric_meters}
+        return meters
+
+    def empty_eval_meters(self) -> Dict[str, AverageMeter]:
+        """The meters :meth:`evaluate` returns, all at count 0: a node whose
+        eval stripe is empty joins the cross-node merge with them (JAX
+        ``engine.py:792``)."""
+        return {"loss": AverageMeter("loss", ":.4e"),
+                "batch_time": AverageMeter("time", ":6.3f"),
+                "data_time": AverageMeter("data", ":6.3f"),
+                **{m: AverageMeter(m, ":.4f") for m in self._wanted_metrics()}}
+
+    def _parallel_mode(self, members: List[nn.Module], use_tta: bool, sliding: bool,
+                       perform_staple: bool) -> Tuple[bool, bool]:
+        """(case-parallel, member-striped) for the node's local ranks, each
+        decision logged (engine.py:840-900). Without TTA, sliding windows
+        and STAPLE the cases are striped, unless a member's outputs carry a
+        leaf without the batch axis (SegResNetVAE's ``vae_loss``), as the
+        JAX package's batched path cannot take them. A STAPLE ensemble
+        without TTA and sliding windows stripes its members when they share
+        one architecture and shapes, unless ``BRATS21_STAPLE_SERIAL`` is
+        set."""
+        n = self.topo.local_size
+        if n <= 1:
+            return False, False
+        case_parallel = not use_tta and not sliding and not perform_staple
+        if case_parallel and any(getattr(m, "unbatched_outputs", False) for m in members):
+            logger.info("a member's outputs have a leaf without the batch axis: cases run "
+                        "serially on the %d local ranks", n)
+            case_parallel = False
+        member_stripe = False
+        if perform_staple and len(members) > 1:
+            if use_tta or sliding:
+                logger.info("STAPLE×%s: members run serially, the %d local ranks share %s "
+                            "within each member", "TTA" if use_tta else "sliding-window", n,
+                            "the 16 TTA combos" if use_tta else "the window grid")
+            elif os.environ.get("BRATS21_STAPLE_SERIAL"):
+                logger.info("BRATS21_STAPLE_SERIAL=1: STAPLE members run serially by request")
+            elif not _homogeneous(members):
+                logger.info("STAPLE ensemble mixes architectures/param shapes: member "
+                            "striping needs a homogeneous stack — falling back to the "
+                            "serial member loop")
+            else:
+                member_stripe = True
+                if self.topo.nodes > 1:
+                    logger.info("multi-node STAPLE: %d members stripe over the %d local "
+                                "ranks of each node (cases already stripe across nodes)",
+                                len(members), n)
+                if len(members) > n:
+                    logger.info("STAPLE: %d members > %d local ranks — each rank forwards "
+                                "ceil(%d/%d) members in sequence", len(members), n,
+                                len(members), n)
+        return case_parallel, member_stripe
 
     def _save_segmentation(self, batch: Dict[str, Any], fused: np.ndarray,
                            p_b: np.ndarray, p_a: np.ndarray, output_path: str,
@@ -350,3 +490,12 @@ class Engine:
             affine = affine[0]
         write_nifti(os.path.join(output_path, fname), labels.astype(np.uint8), affine)
         logger.debug("saved segmentation %s", fname)
+
+
+def _homogeneous(members: List[nn.Module]) -> bool:
+    """Whether the members share one class and every parameter's shape."""
+    first = members[0]
+    shapes = {k: v.shape for k, v in first.state_dict().items()}
+    return all(type(m) is type(first)
+               and {k: v.shape for k, v in m.state_dict().items()} == shapes
+               for m in members[1:])

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.edt import one_hot2hd_dist
+from ..parallel.mesh import batch_sharded, batch_sum
 
 LossFn = Callable[..., torch.Tensor]
 
@@ -34,6 +35,16 @@ def _activate(logits: torch.Tensor, sigmoid: bool, softmax: bool) -> torch.Tenso
     if softmax:
         return torch.softmax(logits, dim=1)
     return logits
+
+
+def _global_batch_sums(*sums: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Batch-axis sums of a data-parallel step's slice summed over the
+    ranks sharing the global batch (one all-reduce; ``parallel/mesh.py``),
+    so the ratio is the global batch's, as in the JAX package's GSPMD
+    step; the sums themselves in a one-rank run."""
+    if not batch_sharded():
+        return sums
+    return tuple(batch_sum(torch.stack(sums)).unbind(0))
 
 
 def _reduce(x: torch.Tensor, reduction: str) -> torch.Tensor:
@@ -63,6 +74,8 @@ def dice_loss(logits: torch.Tensor, target: torch.Tensor, *,
     else:
         ground_o = torch.sum(tgt, dim=axes)
         pred_o = torch.sum(probs, dim=axes)
+    if batch:
+        intersection, ground_o, pred_o = _global_batch_sums(intersection, ground_o, pred_o)
     denominator = ground_o + pred_o
     if jaccard:
         denominator = 2.0 * (denominator - intersection)
@@ -86,6 +99,8 @@ def generalized_dice_loss(logits: torch.Tensor, target: torch.Tensor, *,
     intersection = torch.sum(tgt * probs, dim=axes)
     ground_o = torch.sum(tgt, dim=axes)
     pred_o = torch.sum(probs, dim=axes)
+    if batch:
+        intersection, ground_o, pred_o = _global_batch_sums(intersection, ground_o, pred_o)
     denominator = ground_o + pred_o
     if w_type == "square":
         w = 1.0 / (ground_o * ground_o)

@@ -17,15 +17,22 @@ import torch
 from torch import nn
 
 from ..models.layers import step_generator, stochastic
+from ..parallel.mesh import batch_group
 from .losses import LossFn, deep_supervision_loss
 from .optimizers import TrainOptimizer, global_norm
 
 
 @dataclass
 class TrainState:
+    """The model, its optimizer and the optional SWA average; in a
+    data-parallel run ``ddp`` is the model's DistributedDataParallel
+    wrapper, through which the step's forward runs (checkpoints, SWA and
+    evaluation take ``model`` itself)."""
+
     model: nn.Module
     optimizer: TrainOptimizer
     swa_model: Optional[torch.optim.swa_utils.AveragedModel] = None
+    ddp: Optional[nn.Module] = None
 
 
 def dice_metric(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -60,26 +67,41 @@ class TrainStep:
     :func:`model_uses_rng`) the model's dropout masks and latent samples
     draw from a generator seeded from ``(seed, step)`` on the batch's
     device, ``step`` being the engine's global step, as the JAX package
-    folds its step rng (``engine.py:332``); otherwise they are off, in
-    training too."""
+    folds its step rng (``engine.py:332``), and the ``rank`` of a
+    data-parallel run; otherwise they are off, in training too.
+
+    In a data-parallel run (``state.ddp``) a step given ``sharded=True``
+    holds this rank's slice of a global batch sharded over the group
+    ``sharded_over``: its forward and loss run inside
+    :func:`~..parallel.mesh.batch_group`, so that Dice's batch sums and
+    BatchNorm's statistics are the global batch's, and DDP's average of the
+    ranks' gradients is the global batch's gradient. A replicated batch (it
+    does not divide over the ranks) needs no reduction."""
 
     def __init__(self, criterion: LossFn, use_amp: bool = True,
-                 log_metrics: bool = False, stochastic: bool = False, seed: int = 0):
+                 log_metrics: bool = False, stochastic: bool = False, seed: int = 0,
+                 rank: int = 0, sharded_over: Optional[Any] = None):
         self.criterion = criterion
         self.use_amp = use_amp
         self.log_metrics = log_metrics
         self.stochastic = stochastic
         self.seed = seed
+        self.rank = rank
+        self.sharded_over = sharded_over
 
     def forward_loss(self, state: TrainState, img: torch.Tensor, target: Any,
-                     step: int = 0):
+                     step: int = 0, sharded: bool = False):
         """(loss, main-head logits) of one batch, NCDHW; ``target`` is the
-        seg or the boundary criteria's (seg, distance_map) pair."""
+        seg or the boundary criteria's (seg, distance_map) pair; ``sharded``:
+        the batch is this rank's slice of a global batch."""
         x = img.to(torch.bfloat16 if self.use_amp else torch.float32)
-        gen = step_generator(self.seed, step, x.device) if self.stochastic else None
-        with stochastic(state.model, gen):
-            outputs = state.model(x)
-        loss = deep_supervision_loss(self.criterion, outputs, target)
+        gen = (step_generator(self.seed, step, x.device, self.rank) if self.stochastic
+               else None)
+        global_batch = batch_group(self.sharded_over,
+                                   sharded and self.sharded_over is not None)
+        with stochastic(state.model, gen), global_batch:
+            outputs = (state.ddp or state.model)(x)
+            loss = deep_supervision_loss(self.criterion, outputs, target)
         main = outputs[0] if isinstance(outputs, tuple) else outputs
         if isinstance(main, (list, tuple)):     # [refined, logits]: the metric head
             main = main[0]
@@ -96,9 +118,11 @@ class TrainStep:
         return gnorm
 
     def __call__(self, state: TrainState, img: torch.Tensor, target: Any,
-                 step: int = 0) -> Dict[str, torch.Tensor]:
+                 step: int = 0, sharded: bool = False) -> Dict[str, torch.Tensor]:
+        """One step; ``sharded``: ``img`` is this rank's slice of a global
+        batch (else the whole batch, or a replicated one)."""
         state.model.train()
-        loss, main = self.forward_loss(state, img, target, step)
+        loss, main = self.forward_loss(state, img, target, step, sharded)
         metrics = {"loss": loss.detach(), "grad_norm": self.backward_update(state, loss)}
         if self.log_metrics:
             with torch.no_grad():

@@ -270,6 +270,10 @@ class SegResNetVAE(SegResNet):
     size the branch's Linear layers fix (``input_image_size``), where the
     JAX model's Dense would raise."""
 
+    #: its outputs carry ``vae_loss``, a leaf without the batch axis: the
+    #: engine's case-parallel evaluation takes the serial path for it
+    unbatched_outputs = True
+
     def __init__(self, input_image_size: Sequence[int], init_filters: int = 8,
                  num_classes: int = 3, dropout: float = 0.0, vae_nz: int = 256,
                  in_channels: int = 4):

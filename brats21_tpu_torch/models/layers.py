@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.conv3d import Conv3x3x3Function
+from ..parallel.mesh import batch_sharded, batch_sum
 
 
 def to_kernel_layout(x: torch.Tensor) -> torch.Tensor:
@@ -186,8 +187,12 @@ class BatchNorm(nn.BatchNorm3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = to_kernel_layout(x).float()
         if self.training and not self.frozen:
-            mean = xf.mean(dim=(0, 1, 2, 3))
-            var = torch.clamp(xf.square().mean(dim=(0, 1, 2, 3)) - mean.square(), min=0.0)
+            if batch_sharded():
+                mean, var = self._global_statistics(xf)
+            else:
+                mean = xf.mean(dim=(0, 1, 2, 3))
+                var = torch.clamp(xf.square().mean(dim=(0, 1, 2, 3)) - mean.square(),
+                                  min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(0.9).add_(0.1 * mean)
                 self.running_var.mul_(0.9).add_(0.1 * var)
@@ -197,6 +202,17 @@ class BatchNorm(nn.BatchNorm3d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - _per_channel(mean)) * _per_channel(mul) + _per_channel(self.bias)
         return from_kernel_layout(y)
+
+    @staticmethod
+    def _global_statistics(xf: torch.Tensor):
+        """Mean and variance over the global batch of a data-parallel step
+        (``parallel/mesh.py:batch_group``): the slices' sums of x and x²
+        and their element counts, all-reduced in one call."""
+        sums = torch.stack([xf.sum(dim=(0, 1, 2, 3)), xf.square().sum(dim=(0, 1, 2, 3)),
+                            torch.full_like(xf[0, 0, 0, 0], xf[..., 0].numel())])
+        s1, s2, n = batch_sum(sums).unbind(0)
+        mean = s1 / n
+        return mean, torch.clamp(s2 / n - mean.square(), min=0.0)
 
 
 class EstBN(nn.Module):
@@ -479,13 +495,17 @@ class Dropout(nn.Module):
         return x * keep * (1.0 / (1.0 - self.rate))
 
 
-def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+def step_generator(seed: int, step: int, device: torch.device, rank: int = 0
+                   ) -> torch.Generator:
     """The stochastic layers' generator of one train step, seeded from
-    ``(seed, step)`` alone, as the JAX package folds its step rng on the
-    global step (``engine.py:332``): a run resumed mid-epoch draws the same
-    masks as an uninterrupted one."""
+    ``(seed, step)``, as the JAX package folds its step rng on the global
+    step (``engine.py:332``): a run resumed mid-epoch draws the same masks
+    as an uninterrupted one. The ``rank`` of a data-parallel run offsets
+    the seed, so that its ranks draw different masks for their slices;
+    rank 0's seed is the one-process run's."""
+    key = ((int(seed) & 0x7FFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
     g = torch.Generator(device=device)
-    g.manual_seed(((int(seed) & 0x7FFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
+    g.manual_seed((key + int(rank) * 0x9E3779B97F4A7C15) % 2 ** 64)
     return g
 
 

@@ -17,7 +17,7 @@ at zero weight, this one sends a shorter last batch; the sums are the same.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, List, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,8 +93,23 @@ def sliding_window_inference(
     ``predictor`` takes a channels-last batch ``[n·B, *roi, C]`` of windows
     and returns logits, or ``(logits, deeps)``, in the same layout; only
     head[0] is kept (inferers.py:135-138)."""
+    return stitch_windows(inputs, roi_size, predictor, sw_batch_size, overlap, mode)
+
+
+def stitch_windows(inputs: torch.Tensor, roi_size: Sequence[int],
+                   predictor: Callable[[torch.Tensor], Any], sw_batch_size: int = 2,
+                   overlap: float = 0.25, mode: str = "constant",
+                   select: Callable[[np.ndarray], np.ndarray] = lambda starts: starts,
+                   reduce: Callable[[torch.Tensor], torch.Tensor] = lambda t: t,
+                   out_channels: Optional[int] = None) -> torch.Tensor:
+    """:func:`sliding_window_inference` over the windows ``select`` keeps
+    of the plan's, with the weighted sums and the count map passed through
+    ``reduce`` before the division (window parallelism,
+    ``parallel/distributed.py``: each rank's windows, sums all-reduced).
+    ``out_channels`` sizes the accumulators of a selection with no window."""
     b, *spatial, c_in = inputs.shape
     roi, pads, starts = window_plan(spatial, roi_size, overlap)
+    starts = select(starts)
     # pad to at least roi, half before (inferers.py:104-109)
     flat_pads = [0, 0]
     for before, after in reversed(pads):
@@ -106,22 +121,25 @@ def sliding_window_inference(
     else:
         imp = torch.ones(roi, dtype=torch.float32, device=x.device)
     imp = imp[None, :, :, :, None]
-    out_sum = count = None
+
+    def zeros(c: int) -> torch.Tensor:
+        return torch.zeros((b, *padded, c), dtype=torch.float32, device=x.device)
+
+    out_sum = None if out_channels is None else zeros(out_channels)
+    count = torch.zeros((1, *padded, 1), dtype=torch.float32, device=x.device)
     for i in range(0, len(starts), sw_batch_size):
         group = starts[i:i + sw_batch_size]
         wins = torch.cat([x[:, s0:s0 + roi[0], s1:s1 + roi[1], s2:s2 + roi[2]]
                           for s0, s1, s2 in group])
         preds = main_head(predictor(wins)).float()
         if out_sum is None:
-            out_sum = torch.zeros((b, *padded, preds.shape[-1]), dtype=torch.float32,
-                                  device=x.device)
-            count = torch.zeros((1, *padded, 1), dtype=torch.float32, device=x.device)
+            out_sum = zeros(preds.shape[-1])
         for j, (s0, s1, s2) in enumerate(group):
             sl = (slice(None), slice(s0, s0 + roi[0]), slice(s1, s1 + roi[1]),
                   slice(s2, s2 + roi[2]))
             out_sum[sl] += imp * preds[j * b:(j + 1) * b]
             count[sl] += imp
-    stitched = out_sum / count
+    stitched = reduce(out_sum) / reduce(count)
     # crop the pad-to-roi margins (inferers.py:156-162)
     return stitched[(slice(None),) + tuple(
         slice(before, before + s) for (before, _), s in zip(pads, spatial))]

@@ -41,7 +41,8 @@ FLIPS: Tuple[bool, ...] = (False, True)
 
 #: Cartesian product in the reference order (tta/base.py:115):
 #: for axe in AXES: for flip in FLIPS: for angle in ANGLES
-COMBOS: List[Tuple[str, bool, int]] = [
+Combo = Tuple[str, bool, int]                # (axis order, flip, angle)
+COMBOS: List[Combo] = [
     (a, f, r) for a in AXES for f in FLIPS for r in ANGLES]
 NUM_COMBOS = len(COMBOS)  # 16
 
@@ -102,8 +103,10 @@ def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
 
 def tta_mean_probs(apply_fn: Callable[[torch.Tensor], Any], x: torch.Tensor,
                    criterion: Optional[Callable] = None, target: Any = None,
-                   axes: Sequence[str] = AXES,
-                   num_classes: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
+                   axes: Sequence[str] = AXES, num_classes: int = 3,
+                   select: Callable[[List[Combo]], List[Combo]] = lambda combos: combos,
+                   reduce: Callable[[torch.Tensor], torch.Tensor] = lambda t: t
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(mean sigmoid probabilities (fp32) of the main head, mean
     deep-supervision loss) over the TTA combos — the engine.py:229-249
     fusion. ``apply_fn`` maps a channels-last volume to the model output in
@@ -111,7 +114,10 @@ def tta_mean_probs(apply_fn: Callable[[torch.Tensor], Any], x: torch.Tensor,
     ``target`` (NCDHW, or the boundary criteria's (seg, distance_map) pair,
     as the port's losses take them) each combo's de-augmented output tree
     goes through ``deep_supervision_loss`` as NCDHW views; else the loss is
-    0."""
+    0. Only the combos ``select`` keeps run, and the sums of probabilities
+    and losses pass through ``reduce`` before the division by the whole
+    set's count (TTA parallelism, ``parallel/distributed.py``: each rank's
+    combos, sums all-reduced)."""
     if x.shape[1] != x.shape[2]:
         raise ValueError(
             f"TTA requires square first two spatial dims, got {tuple(x.shape)}; "
@@ -121,7 +127,7 @@ def tta_mean_probs(apply_fn: Callable[[torch.Tensor], Any], x: torch.Tensor,
     loss = torch.zeros((), dtype=torch.float32, device=x.device)
     with_loss = criterion is not None and target is not None
     combos = [c for c in COMBOS if c[0] in axes]
-    for axe, flip, angle in combos:
+    for axe, flip, angle in select(combos):
         out = apply_fn(aug_flip_rot(aug_axes(x, axe), flip, angle))
         if not with_loss:
             out = main_head(out)      # de-augment the main head alone
@@ -130,7 +136,7 @@ def tta_mean_probs(apply_fn: Callable[[torch.Tensor], Any], x: torch.Tensor,
         if with_loss:
             loss += deep_supervision_loss(
                 criterion, tree_map(lambda t: t.permute(0, 4, 1, 2, 3), out), target)
-    return probs / len(combos), loss / len(combos)
+    return reduce(probs) / len(combos), reduce(loss) / len(combos)
 
 
 def pad_to_square_tta(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int]]:

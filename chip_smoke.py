@@ -109,7 +109,33 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 20. unet_tr at full width (ViT-B/16, feature size 16): 2 train steps at
     128³ (10 conv launches a step), one case served through windows of
     128³ (a full volume must raise); then 2 train steps of segresnetvae,
-    whose loss must equal the criterion's mean plus its finite VAE term.
+    whose loss must equal the criterion's mean plus its finite VAE term;
+21. data-parallel training: ``python -m torch.distributed.run
+    --nproc_per_node 2`` of the train CLI on the one card (backend gloo,
+    printed), the flagship recipe of phase 9 with ``--batch_size 2`` (one
+    sample a rank) for 4 steps, in fp32 (``--no_amp``) and in bf16, each
+    held to the one-process run with batch 2: each step's loss (the ranks'
+    mean) within ``DDP_LOSS_RTOL`` relative, the final parameters' distance
+    within ``DDP_PARAM_SHARE`` of their movement, the two ranks' parameters
+    equal; 14 / 21 / 3 launches a step forward on each rank, none
+    backward; each rank's step ms and peak memory printed; beside them the
+    loss of one batch of two against two batches of one, no collective, a
+    second bf16 one-process run (the floors of the comparison), and each
+    precision's one-process run with one sample's gradient left out, which
+    must break the limits;
+22. serving on 2 local ranks: the served case with ``--tta`` (8 combos a
+    rank), phase 13's two-member sliding-window and STAPLE ensembles
+    (windows, then members, striped) and two cases without TTA (one a
+    rank); each rank's launches half of the one-process run's, each case
+    written once, the labels equal to the one-process run's on ≥ 99.9 %
+    of voxels (the share printed);
+23. two nodes (two ``torch.distributed.run --nnodes 2`` with a c10d
+    rendezvous on localhost, one rank each): ``--on val`` over two val
+    cases striped over the nodes, its merged report rows equal to the
+    one-process run's; then ``main_train_folds`` for one epoch at 128³
+    over phase 12's five cases (folds 0, 2, 4 on node 0, 1 and 3 on node
+    1), whose five fold directories the inference CLI serves as an
+    ensemble.
 
 Phase 1 also builds the native case loader (``csrc/nifti_native.cc``, g++);
 phase 6 times decode + crop + normalise on its path and on the numpy path
@@ -126,10 +152,13 @@ the padded case) against their plain versions.
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 Data and builds go under ``brats21_tpu_torch/_build/`` in this checkout.
+``python3 chip_smoke.py --rank-worker SPEC`` is one rank of phases 21-23,
+started by ``torch.distributed.run``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import shutil
@@ -242,6 +271,21 @@ NNUNET_STEP_LAUNCHES = dict(conv3x3x3=17, evonorm_s0=0, edt_envelope=0)
 # sum in another order from run to run)
 RESUME_LOSS_RTOL = 1e-3
 RESUME_PARAM_SHARE = 0.05
+# phase 21, 2 ranks (one sample each) against one process with batch 2:
+# each step's loss relative to the one process's, and the distance of the
+# final parameters from the one process's as a share of how far that run
+# moved them from the seeded initial weights. fp32 (--no_amp) read at most
+# 5.3e-6 and 1.42e-5 on the H100 (five runs of phase 21); its limits sit
+# between those readings and what a lost gradient gives (one rank's left
+# out of DDP's average, :func:`one_gradient_left_out`), which each run
+# measures and must break the limits. bf16, the recipe's precision: the one
+# process alone differs from run to run by up to 1.3e-3 in a step's loss
+# (its backward sums in no fixed order; measured again each run), and a
+# batch of one rounds otherwise than one of two (batch_split_noise); the
+# two-rank run read at most 3.08e-3 and 0.0040 in six runs, so its limits
+# are those readings with room.
+DDP_LOSS_RTOL = dict(fp32=1e-4, bf16=5e-3)
+DDP_PARAM_SHARE = dict(fp32=1e-3, bf16=1e-2)
 # phase 20: UNETR (ViT-B/16), served through windows of its patch, and
 # SegResNetVAE with its VAE term
 UNETR_ARGS = ("--model", "unet_tr", "--norm", "instance", "--criterion", "dice",
@@ -855,6 +899,7 @@ class StepProbe:
         probe = self
 
         def forward_loss(step, state, img, target, *args):
+            probe.state = state
             probe.host_t.append(time.time())
             tally.take()
             start = torch.cuda.Event(enable_timing=True)
@@ -1828,6 +1873,473 @@ def unetr_phase(work: Path, train_data: Path, data: Path, dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 21-23: ranks under torch.distributed.run
+# ---------------------------------------------------------------------------
+
+
+def rank_worker(spec_path: str) -> int:
+    """One rank of phases 21-23 (``--rank-worker SPEC``): runs the spec's
+    CLI jobs in turn with the kernels' counters probed, and writes this
+    rank's results to ``<out>/rank<r>.json`` (and its final parameters of a
+    train job to ``params_rank<r>.pt``)."""
+    import torch
+    from brats21_tpu_torch.learning.engine import Engine
+    from brats21_tpu_torch.parallel import multihost
+    from brats21_tpu_torch.parallel.mesh import init_topology
+    spec = json.loads(Path(spec_path).read_text())
+    topo = init_topology("0")
+    dev = topo.device
+    out = dict(rank=topo.rank, node=topo.node, local_rank=topo.local_rank,
+               backend=topo.backend, device=str(dev), card=torch.cuda.get_device_name(dev),
+               runs=[])
+    saved: list = []
+    save = Engine._save_segmentation
+
+    def record(engine, batch, *args):
+        saved.append(batch["patient_id"][0])
+        return save(engine, batch, *args)
+
+    Engine._save_segmentation = record
+    # the evaluation's collectives (parallel/distributed.py), each timed
+    # between synchronisations: gloo stages a CUDA tensor through the host
+    from brats21_tpu_torch.parallel import distributed
+    reduce, reduces = distributed.all_reduce_sum, []
+
+    def timed_reduce(t, group):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = reduce(t, group)
+        torch.cuda.synchronize()
+        reduces.append((t.numel() * t.element_size(), time.time() - t0))
+        return out
+
+    distributed.all_reduce_sum = timed_reduce
+    for job in spec["jobs"]:
+        reduces.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        saved.clear()
+        tally = Tally()
+        t0 = time.time()
+        if job["cli"] == "train":
+            from brats21_tpu_torch.cli.main_train import main as cli
+            probe = StepProbe(tally)
+            try:
+                result = cli(job["argv"])
+                torch.cuda.synchronize()
+            finally:
+                probe.close()
+            torch.save({k: v.detach().cpu() for k, v in probe.state.model.state_dict().items()},
+                       Path(spec["out"]) / f"params_{job['name']}_rank{topo.rank}.pt")
+            run = dict(result=result, step_ms=probe.step_ms(),
+                       step_losses=[float(v) for v in probe.losses],
+                       forward_launches=probe.forward, backward_launches=probe.backward,
+                       run_launches=probe.total_launches())
+        else:
+            if job["cli"] == "folds":
+                from brats21_tpu_torch.cli.main_train_folds import main as cli
+            else:
+                from brats21_tpu_torch.cli.main_inference import main as cli
+            cases = CaseProbe(tally)
+            try:
+                result = cli(job["argv"])
+                torch.cuda.synchronize()
+            finally:
+                cases.close()
+            tally.take()
+            run = dict(cases=cases.cases, run_launches=dict(tally.total),
+                       case_s=list(result["batch_time"].history)
+                       if job["cli"] == "infer" else None)
+        run.update(name=job["name"], wall_s=time.time() - t0, saved=list(saved),
+                   peak_bytes=torch.cuda.max_memory_allocated(dev),
+                   all_reduce=dict(calls=len(reduces), bytes=sum(b for b, _ in reduces),
+                                   seconds=sum(t for _, t in reduces)))
+        out["runs"].append(run)
+    Path(spec["out"], f"rank{topo.rank}.json").write_text(json.dumps(out))
+    multihost.shutdown()
+    return 0
+
+
+def launch_ranks(work: Path, name: str, jobs: list, nproc: int = 2, nnodes: int = 1,
+                 timeout: float = 600) -> list:
+    """``jobs`` on ``nnodes`` × ``nproc`` ranks of this card (one
+    ``torch.distributed.run`` a node, all started together); each rank's
+    results by global rank. Fails when a rank fails or outlives
+    ``timeout``; every process started is stopped."""
+    import torch
+    from brats21_tpu_torch.parallel import multihost
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = work / name
+    out.mkdir()
+    spec = out / "spec.json"
+    spec.write_text(json.dumps(dict(out=str(out), jobs=jobs)))
+    repo = Path(__file__).resolve().parent
+    t0 = time.time()
+    outs = multihost.run_ranks([str(Path(__file__).resolve()), "--rank-worker", str(spec)],
+                               nproc, nnodes, timeout=timeout, cwd=str(repo),
+                               env={"OMP_NUM_THREADS": "2"})
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(nproc * nnodes)]
+    for r in ranks:
+        if r["backend"] != "gloo" or r["card"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"{name}: rank {r['rank']} on {r['card']} with backend "
+                                 f"{r['backend']}, want gloo on this card")
+    log(f"{name}: {nnodes} node(s) × {nproc} rank(s) sharing one card, backend "
+        f"{ranks[0]['backend']}, in {time.time() - t0:.1f}s; "
+        f"rank lines: {[ln for o in outs for ln in o.splitlines() if '), backend ' in ln][:4]}")
+    return ranks
+
+
+def label_share(a: Path, b: Path) -> float:
+    """The share of voxels where two label maps agree."""
+    from brats21_tpu_torch.data.nifti import read_nifti
+    x, y = read_nifti(str(a)).data, read_nifti(str(b)).data
+    if x.shape != y.shape:
+        raise AssertionError(f"{a} {x.shape} vs {b} {y.shape}")
+    return float((x == y).mean())
+
+
+def batch_split_noise(dev) -> dict:
+    """How far the dice_hd loss and its gradient for one batch of two 128³
+    samples move when the batch is computed as two batches of one (what 2
+    ranks do) instead of one batch of two, without any collective: the
+    flagship w48 at its seeded initial weights, bf16 and fp32. In bf16 each
+    weight's gradient is taken against its bf16 copy (the JAX package's
+    casts), so it is rounded to bf16 once a batch: two batches of one round
+    twice. The floor under phase 21's comparison of the two runs."""
+    import torch
+    from brats21_tpu_torch.learning.losses import deep_supervision_loss, make_criterion
+    from brats21_tpu_torch.models import get_model
+    torch.manual_seed(123)
+    model = get_model({"model": "equiunet_assp_evo", "width": WIDTH}).to(dev).train()
+    criterion = make_criterion({"criterion": "dice_hd"})
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn((2, 4, *PATCH), generator=gen).to(dev)
+    seg = (torch.rand((2, 3, *PATCH), generator=gen) > 0.7).float().to(dev)
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        xc = x.to(dtype).contiguous(memory_format=torch.channels_last_3d)
+
+        def loss(a, b):
+            return deep_supervision_loss(criterion, model(xc[a:b]), seg[a:b])
+
+        def grads():
+            g = torch.cat([p.grad.reshape(-1) for p in model.parameters()
+                           if p.grad is not None])
+            model.zero_grad(set_to_none=True)
+            return g
+
+        whole = loss(0, 2)
+        whole.backward()
+        g_whole = grads()
+        halves = [loss(0, 1), loss(1, 2)]
+        for h in halves:
+            (h / 2).backward()
+        g_split = grads()
+        whole, split = whole.item(), (halves[0].item() + halves[1].item()) / 2
+        out[name] = dict(loss_relative=abs(whole - split) / abs(whole),
+                         grad_relative=float((g_whole - g_split).norm() / g_whole.norm()))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def one_gradient_left_out():
+    """The fault phase 21's limits must catch, in one process: the train
+    CLI's model detaches its outputs for every sample but the first, so a
+    batch of two steps on the first sample's gradient alone, halved, as
+    DDP's average is when one rank's gradient is lost, while the loss it
+    reports is still the whole batch's."""
+    import torch
+    from brats21_tpu_torch.cli import main_train
+    from brats21_tpu_torch.ops.tta import tree_map
+    make = main_train.get_model
+
+    def hook(module, inputs, out):
+        return tree_map(lambda t: torch.cat([t[:1], t[1:].detach()]), out)
+
+    def get_model(cfg):
+        model = make(cfg)
+        model.register_forward_hook(hook)
+        return model
+
+    main_train.get_model = get_model
+    try:
+        yield
+    finally:
+        main_train.get_model = make
+
+
+def apart(got: dict, ref: dict, init: dict) -> tuple:
+    """(distance of ``got``'s floating tensors from ``ref``'s as a share of
+    ``ref``'s distance from ``init``, the worst tensor's share)."""
+    move = diff = worst = 0.0
+    for key, w in ref.items():
+        if not w.is_floating_point():
+            continue
+        m = (w - init[key]).float().norm().item()
+        d = (got[key] - w).float().norm().item()
+        move, diff = move + m * m, diff + d * d
+        worst = max(worst, d / m if m > 0 else 0.0)
+    return math.sqrt(diff) / math.sqrt(move), worst
+
+
+def ddp_phase(work: Path, train_data: Path, dev) -> dict:
+    """Phase 21: the flagship recipe on 2 ranks of the card (one sample a
+    rank) for 4 steps, held to the one-process run with batch 2: in fp32
+    (``--no_amp``; B1's fp32 path), where the two runs differ by the order
+    of float sums alone, and in bf16, the recipe's precision, where a batch
+    of one and one of two round differently (:func:`batch_split_noise`).
+    Beside them, each precision's one-process run with one sample's
+    gradient left out (:func:`one_gradient_left_out`), which must break the
+    limits, and a second bf16 one-process run, whose distance from the
+    first is the floor under the bf16 comparison."""
+    import torch
+    from brats21_tpu_torch.models import get_model
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    noise = batch_split_noise(dev)
+    extra = ("--fold", "None", "--batch_size", "2", "--epochs", "2")
+    precisions = {"fp32": ("--no_amp",), "bf16": ()}
+    one = {p: run_training(train_data, work / f"runs_ddp1_{p}", dev, extra=extra + flags)
+           for p, flags in precisions.items()}
+    again = run_training(train_data, work / "runs_ddp1_bf16_again", dev, extra=extra)
+    with one_gradient_left_out():
+        fault = {p: run_training(train_data, work / f"runs_ddp1_{p}_fault", dev,
+                                 extra=extra + flags)
+                 for p, flags in precisions.items()}
+    base = ["--train_data_path", str(train_data), "--device", "0", "--model",
+            "equiunet_assp_evo", "--width", str(WIDTH), "--criterion", "dice_hd",
+            "--optimizer", "ranger", "--decay_type", "cosine", "--learning_rate", "3e-4",
+            "--use_gc", "--remove_outliers", "--num_workers", "2", "--patch_size",
+            *map(str, PATCH), "--no_tensorboard", *extra]
+    ranks = launch_ranks(work, "ddp", [
+        dict(cli="train", name=p, argv=base + ["--save_path", str(work / f"runs_ddp2_{p}"),
+                                               *flags])
+        for p, flags in precisions.items()])
+    torch.manual_seed(123)                    # the CLI's default --seed
+    init = get_model({"model": "equiunet_assp_evo", "width": WIDTH}).state_dict()
+
+    def last(run):
+        return torch.load(Path(run["run_dir"]) / "last_model.pth", map_location="cpu",
+                          weights_only=True)["model"]
+
+    def loss_rel(losses, ref):
+        return [abs(a - b) / abs(b) for a, b in zip(losses, ref["step_losses"])]
+
+    res = dict(batch_split_noise=noise, backend=ranks[0]["backend"])
+    for k, p in enumerate(precisions):
+        runs = [r["runs"][k] for r in ranks]
+        check_step_launches(one[p], TRAIN_STEP_LAUNCHES, f"phase 21 one-process {p}")
+        for r, run in zip(ranks, runs):
+            check_step_launches(run, TRAIN_STEP_LAUNCHES, f"phase 21 {p} rank {r['rank']}")
+            if len(run["step_losses"]) != 4:
+                raise AssertionError(f"phase 21 {p} rank {r['rank']}: "
+                                     f"{len(run['step_losses'])} steps")
+        losses = [sum(v) / len(v) for v in zip(*(run["step_losses"] for run in runs))]
+        rel = loss_rel(losses, one[p])
+        params = [torch.load(work / "ddp" / f"params_{p}_rank{r}.pt", weights_only=True)
+                  for r in range(2)]
+        rank_diff = max((params[0][key].float() - params[1][key].float()).abs().max().item()
+                        for key in params[0])
+        whole = last(one[p])
+        saved = torch.load(next((work / f"runs_ddp2_{p}").glob("*/last_model.pth")),
+                           map_location="cpu", weights_only=True)["model"]
+        for key in whole:
+            if (saved[key] != params[0][key]).any():
+                raise AssertionError(f"phase 21 {p}: the checkpoint's {key} is not rank 0's")
+        share, worst = apart(params[0], whole, init)
+        fault_rel = loss_rel(fault[p]["step_losses"], one[p])
+        fault_share, _ = apart(last(fault[p]), whole, init)
+        res[p] = dict(step_losses_two_ranks=losses, step_losses_one=one[p]["step_losses"],
+                      loss_rel=rel, param_share_of_movement=share, worst_tensor_share=worst,
+                      limits=dict(loss_rel=DDP_LOSS_RTOL[p], param_share=DDP_PARAM_SHARE[p]),
+                      lost_gradient=dict(loss_rel=fault_rel, param_share=fault_share),
+                      ranks_param_max_diff=rank_diff,
+                      step_ms_per_rank=[run["step_ms"] for run in runs],
+                      step_ms_one=one[p]["step_ms"],
+                      peak_gib_per_rank=[run["peak_bytes"] / 2**30 for run in runs],
+                      peak_gib_one=one[p]["peak_bytes"] / 2**30,
+                      launches_per_step_per_rank=runs[0]["forward_launches"][0],
+                      wall_s_per_rank=[run["wall_s"] for run in runs],
+                      one_wall_s=one[p]["wall_s"])
+        if p == "bf16":
+            res[p]["one_process_run_to_run"] = dict(
+                loss_rel=loss_rel(again["step_losses"], one[p]),
+                param_share=apart(last(again), whole, init)[0])
+        log(f"phase 21 DDP {p} (2 ranks, backend {res['backend']}): step losses {losses} vs "
+            f"one process {one[p]['step_losses']} (relative {[f'{v:.2e}' for v in rel]}, "
+            f"limit {DDP_LOSS_RTOL[p]}), parameters {share:.3g} of their movement apart "
+            f"(limit {DDP_PARAM_SHARE[p]}; worst tensor {worst:.3g}), ranks' max |diff| "
+            f"{rank_diff}; one gradient left out: relative "
+            f"{[f'{v:.2e}' for v in fault_rel]}, parameters {fault_share:.3g} apart; "
+            + (f"one process run to run: {json.dumps(res[p]['one_process_run_to_run'])}; "
+               if p == "bf16" else "")
+            + f"step ms per rank {[[round(t, 1) for t in r] for r in res[p]['step_ms_per_rank']]}"
+            f" vs one process {[round(t, 1) for t in one[p]['step_ms']]}; peak GiB per rank "
+            f"{[round(g, 2) for g in res[p]['peak_gib_per_rank']]} vs "
+            f"{res[p]['peak_gib_one']:.2f}; launches a step per rank "
+            f"{res[p]['launches_per_step_per_rank']}")
+        if rank_diff != 0:
+            raise AssertionError(f"phase 21 {p}: the ranks' parameters differ by {rank_diff}")
+        if max(rel) > DDP_LOSS_RTOL[p] or share > DDP_PARAM_SHARE[p]:
+            raise AssertionError(f"phase 21 {p}: loss relative {rel} (limit "
+                                 f"{DDP_LOSS_RTOL[p]}), parameters {share:.3g} of their "
+                                 f"movement apart (limit {DDP_PARAM_SHARE[p]})")
+        if max(fault_rel) <= DDP_LOSS_RTOL[p] and fault_share <= DDP_PARAM_SHARE[p]:
+            raise AssertionError(f"phase 21 {p}: a lost gradient stays within the limits "
+                                 f"(loss relative {fault_rel}, parameters {fault_share:.3g} "
+                                 "apart)")
+    log(f"phase 21: batch of two vs two of one, no collective: {json.dumps(noise)}; in "
+        f"{time.time() - t0:.1f}s")
+    res["launches_per_step_per_rank"] = res["bf16"]["launches_per_step_per_rank"]
+    return res
+
+
+def serve_ranks_phase(work: Path, base: list, data: Path, run_dir: Path, other_run: Path,
+                      val_data: Path, train_data: Path, tta_run: dict, ensemble: dict,
+                      dev) -> dict:
+    """Phase 22: the inference CLI on 2 local ranks: TTA combos, windows,
+    STAPLE members and whole cases striped, each held to its one-process
+    run (phases 5 and 13, and a two-case run here)."""
+    t0 = time.time()
+    two = cases_dir(work, train_data, "serve_two", 2)
+    base_two = [str(two) if a == str(data) else a for a in base]
+    one_cases = run_cli(base_two + ["--output", str(work / "out_cases1")], dev)
+    ens = ["--config", str(run_dir / "config.yaml"), str(other_run / "config.yaml"),
+           "--import_pth", str(run_dir / "best_model.pth"), str(other_run / "last_model.pth"),
+           "--on", "val", "--train_data_path", str(val_data), "--device", "0",
+           "--sliding_window_size", *map(str, SW_ROI)]
+    out = {m: work / f"out_{m}_2r" for m in ("tta", "sliding", "staple", "cases")}
+    jobs = [dict(cli="infer", name="tta", argv=base + ["--tta", "--output", str(out["tta"])]),
+            dict(cli="infer", name="sliding",
+                 argv=ens + ["--sliding_window_inference", "--output", str(out["sliding"])]),
+            dict(cli="infer", name="staple",
+                 argv=ens + ["--perform_staple", "--output", str(out["staple"])]),
+            dict(cli="infer", name="cases", argv=base_two + ["--output", str(out["cases"])])]
+    ranks = launch_ranks(work, "serve", jobs)
+    refs = dict(tta=(tta_run, work / "out_tta" / "Inference_segmentations_test"),
+                sliding=(ensemble["sliding"], work / "out_sliding" / "Inference_segmentations_val"),
+                staple=(ensemble["staple"], work / "out_staple" / "Inference_segmentations_val"),
+                cases=(one_cases, work / "out_cases1" / "Inference_segmentations_test"))
+    res = {}
+    for k, job in enumerate(jobs):
+        name = job["name"]
+        ref, ref_dir = refs[name]
+        runs = [r["runs"][k] for r in ranks]
+        saved = sorted(p for run in runs for p in run["saved"])
+        files = sorted(f.name for f in (ref_dir).glob("*.nii.gz"))
+        seg_dir = out[name] / ref_dir.name
+        if saved != sorted(f[:-len(".nii.gz")] for f in files) or sorted(
+                f.name for f in seg_dir.glob("*.nii.gz")) != files:
+            raise AssertionError(f"phase 22 {name}: cases written {saved}, files "
+                                 f"{sorted(f.name for f in seg_dir.glob('*.nii.gz'))}, "
+                                 f"want each of {files} once")
+        shares = [label_share(seg_dir / f, ref_dir / f) for f in files]
+        got = [run["run_launches"] for run in runs]
+        want = {kk: v // 2 for kk, v in ref["launches"].items()}
+        if name == "sliding":
+            # each rank's windows of each member (an odd count splits
+            # unevenly: the ranks' sum is the whole), and on every rank the
+            # members' losses of the stitched logits (3 EDT launches each)
+            ok = all(sum(g[kk] for g in got) == ref["launches"][kk]
+                     for kk in ("conv3x3x3", "evonorm_s0")) and all(
+                g["edt_envelope"] == ref["launches"]["edt_envelope"] for g in got)
+        else:
+            ok = all(g == want for g in got)
+        if not ok:
+            raise AssertionError(f"phase 22 {name}: launches per rank {got}, one process "
+                                 f"{ref['launches']}")
+        if min(shares) < 0.999:
+            raise AssertionError(f"phase 22 {name}: labels agree with the one-process run on "
+                                 f"{shares} of voxels")
+        res[name] = dict(launches_per_rank=got, one_process=ref["launches"],
+                         all_reduce_per_rank=[run["all_reduce"] for run in runs],
+                         label_share=shares, case_s_per_rank=[run["case_s"] for run in runs],
+                         case_s_one=ref["case_s"], wall_s_per_rank=[r["wall_s"] for r in runs],
+                         peak_gib_per_rank=[r["peak_bytes"] / 2**30 for r in runs],
+                         saved_per_rank=[run["saved"] for run in runs])
+        log(f"phase 22 {name}: launches per rank {got} (one process {ref['launches']}), "
+            f"labels equal to the one-process run's on {min(shares):.6f} of voxels, case s "
+            f"per rank {res[name]['case_s_per_rank']} vs {ref['case_s']}, all-reduces per "
+            f"rank {res[name]['all_reduce_per_rank']}, written by rank "
+            f"{res[name]['saved_per_rank']}")
+    log(f"phase 22 serving on 2 ranks: {time.time() - t0:.1f}s")
+    return res
+
+
+def read_rows(path: Path) -> dict:
+    """An Evaluation CSV's rows by patient id."""
+    lines = [ln.split(",") for ln in path.read_text().splitlines() if ln]
+    return {row[0]: [float(v) for v in row[1:]] for row in lines[1:]}
+
+
+def nodes_phase(work: Path, run9_dir: Path, train_data: Path, val_data: Path, data: Path,
+                dev) -> dict:
+    """Phase 23: two nodes of one rank on this card: ``--on val`` with the
+    val cases striped over the nodes, then ``main_train_folds``; the five
+    fold directories served as an ensemble."""
+    t0 = time.time()
+    two = cases_dir(work, train_data, "val_two", 2)
+    argv = ["--config", str(run9_dir / "config.yaml"), "--import_pth",
+            str(run9_dir / "best_model.pth"), "--on", "val", "--val_data_path", str(two),
+            "--device", "0"]
+    one = run_cli(argv + ["--output", str(work / "out_val_1node")], dev)
+    jobs = [dict(cli="infer", name="val", argv=argv + ["--output", str(work / "out_val_2n")])]
+    ranks = launch_ranks(work, "nodes_val", jobs, nproc=1, nnodes=2)
+    want_rows = read_rows(next((work / "out_val_1node").glob("Evaluation_inference_val*.csv")))
+    got_rows = read_rows(next((work / "out_val_2n").glob("Evaluation_inference_val*.csv")))
+    cases = [r["runs"][0]["saved"] for r in ranks]
+    if sorted(got_rows) != sorted(want_rows) or len(want_rows) != 2 or sorted(
+            cases[0] + cases[1]) != sorted(want_rows) or not all(cases):
+        raise AssertionError(f"phase 23 --on val: rows {sorted(got_rows)} vs "
+                             f"{sorted(want_rows)}, cases by node {cases}")
+    row_diff = max(abs(a - b) for k in want_rows for a, b in zip(got_rows[k], want_rows[k]))
+    if row_diff > 1e-6:
+        raise AssertionError(f"phase 23 --on val: merged rows differ by {row_diff}")
+    log(f"phase 23 --on val over 2 nodes: cases by node {cases}, merged rows equal to one "
+        f"node's (max |diff| {row_diff}), launches by node "
+        f"{[r['runs'][0]['run_launches'] for r in ranks]} vs one {one['launches']}")
+    folds_argv = ["--train_data_path", str(val_data), "--save_path", str(work / "runs_folds"),
+                  "--device", "0", "--model", "equiunet_assp_evo", "--width", str(WIDTH),
+                  "--criterion", "dice_hd", "--optimizer", "ranger", "--decay_type", "cosine",
+                  "--learning_rate", "3e-4", "--use_gc", "--remove_outliers", "--epochs", "1",
+                  "--val_frequency", "1", "--num_workers", "2", "--patch_size",
+                  *map(str, PATCH), "--no_tensorboard"]
+    franks = launch_ranks(work, "nodes_folds", [dict(cli="folds", name="folds",
+                                                      argv=folds_argv)], nproc=1, nnodes=2)
+    base, = (work / "runs_folds").glob("*_folds")
+    fold_dirs = sorted(base.glob("fold_*"))
+    if [d.name for d in fold_dirs] != [f"fold_{f}" for f in range(5)] or not all(
+            (d / n).exists() for d in fold_dirs for n in ("config.yaml", "best_model.pth")):
+        raise AssertionError(f"phase 23 folds: {[d.name for d in fold_dirs]}")
+    configs = [str(d / "config.yaml") for d in fold_dirs]
+    served = run_cli(["--config", *configs, "--on", "test", "--input", str(data),
+                      "--device", "0", "--output", str(work / "out_folds")], dev)
+    case, = served["cases"]
+    if case["members"] != 5 or served["launches"]["conv3x3x3"] != 5 * 14:
+        raise AssertionError(f"phase 23 folds ensemble: {case['members']} members, launches "
+                             f"{served['launches']}")
+    check_segmentation(work / "out_folds" / "Inference_segmentations_test"
+                       / "BraTS2021_00000.nii.gz")
+    res = dict(val_rows_max_diff=row_diff, val_cases_by_node=cases,
+               val_launches_by_node=[r["runs"][0]["run_launches"] for r in ranks],
+               val_one_node_launches=one["launches"],
+               folds_launches_by_node=[r["runs"][0]["run_launches"] for r in franks],
+               folds_wall_s_by_node=[r["runs"][0]["wall_s"] for r in franks],
+               folds_peak_gib_by_node=[r["runs"][0]["peak_bytes"] / 2**30 for r in franks],
+               folds_val_cases_by_node=[len(r["runs"][0]["cases"]) for r in franks],
+               ensemble_launches=served["launches"], ensemble_case_s=served["case_s"])
+    log(f"phase 23 main_train_folds over 2 nodes: launches by node "
+        f"{res['folds_launches_by_node']}, wall {res['folds_wall_s_by_node']} s, peak GiB "
+        f"{res['folds_peak_gib_by_node']}; five fold directories served as an ensemble "
+        f"(launches {served['launches']}, case {served['case_s']} s); in "
+        f"{time.time() - t0:.1f}s")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2115,6 +2627,18 @@ def main() -> int:
     unetr = unetr_phase(work, train_data, data, dev)
     take_native(20, cli=True)
 
+    # 21. data-parallel training on 2 ranks of the card
+    ddp = ddp_phase(work, train_data, dev)
+    take_native(21, cli=True)
+
+    # 22. serving on 2 local ranks (the one-process runs: phases 5 and 13)
+    serve2 = serve_ranks_phase(work, base, data, Path(val["run_dir"]),
+                               Path(boundary["run_dir"]), val_data, train_data, tta_run,
+                               ensemble, dev)
+
+    # 23. two nodes: --on val striped, fold-parallel training
+    nodes = nodes_phase(work, run_dir, train_data, val_data, data, dev)
+
     sliding_case, = ensemble["sliding"]["cases"]
     kernel_rows = []
     for name, route, source, replaces, tolerance, res, res_train, ms_per in (
@@ -2156,7 +2680,10 @@ def main() -> int:
                        unet_tr_train_step=unetr["train"]["step_launches"][name],
                        unet_tr_case=unetr["served"]["launches"][name],
                        segresnetvae_train_step=unetr["segresnetvae"]["train"][
-                           "step_launches"][name]),
+                           "step_launches"][name],
+                       ddp_train_step_per_rank=ddp["launches_per_step_per_rank"][name],
+                       **{f"two_ranks_{k}_per_rank": [r[name] for r in v["launches_per_rank"]]
+                          for k, v in serve2.items()}),
                    shapes=res["rows"])
         if name == "conv3x3x3":
             row["model1"] = {
@@ -2200,8 +2727,8 @@ def main() -> int:
                    boundary=boundary, validation=val, val_case_split=val_split,
                    ensemble=ensemble, native_loads=native_counts, docker=docker, watch=watch,
                    zoo_models=zoo, model1=model1, batchnorm=batchnorm, monai_zoo=monai,
-                   nnunet=nnunet, unetr=unetr,
-                   total_s=time.time() - t_start)
+                   nnunet=nnunet, unetr=unetr, ddp=ddp, serve_two_ranks=serve2,
+                   two_nodes=nodes, total_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": kernel_rows}))
@@ -2213,4 +2740,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2]))
     sys.exit(main())

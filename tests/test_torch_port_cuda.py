@@ -8,8 +8,9 @@ against autograd of their plain versions (one conv applied three times
 too), the model zoo's conv shapes (the MONAI-backed names' at the levels
 of a 128³ patch too), Model 1, R2Unet and the seven MONAI-backed names, and
 the sliding
-window and a dice_hd validation loss on the card against the CPU. Marked ``cuda``: without a card every test
-skips. On a machine with one, from the repository root:
+window and a dice_hd validation loss on the card against the CPU, and a
+gloo all-reduce of CUDA tensors between two ranks on one card. Marked
+``cuda``: without a card every test skips. On a machine with one, from the repository root:
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
 
@@ -516,3 +517,35 @@ def test_dice_hd_validation_loss_on_card_matches_cpu(dev):
             criterion, _ncdhw(tuple([outputs[0].to(dev), [d.to(dev) for d in outputs[1]]])),
             target.to(dev))
     assert abs(on_card.item() - want_l.item()) <= 1e-5 * abs(want_l.item())
+
+
+_GLOO_RANK = """
+import torch, torch.distributed as dist
+from brats21_tpu_torch.parallel import multihost
+from brats21_tpu_torch.parallel.distributed import all_reduce_sum
+from brats21_tpu_torch.parallel.mesh import init_topology
+topo = init_topology("0")
+assert topo.backend == "gloo" and topo.device.type == "cuda", (topo.backend, topo.device)
+t = torch.full((3, 1000), float(topo.rank + 1), device=topo.device)
+all_reduce_sum(t, topo.local_group)
+assert t.device.type == "cuda" and bool((t == 3.0).all()), t
+print("rank", topo.rank, "backend", topo.backend, "ok", flush=True)
+multihost.shutdown()
+"""
+
+
+def test_gloo_all_reduce_of_cuda_tensors_on_one_card(dev, tmp_path):
+    """Two local ranks on one card: the backend is gloo (NCCL refuses two
+    ranks on one device), and gloo all-reduces CUDA tensors over the
+    node's group."""
+    from pathlib import Path
+    from brats21_tpu_torch.parallel import multihost
+    if torch.cuda.device_count() != 1:
+        pytest.skip("the rule under test: more local ranks than cards")
+    script = tmp_path / "rank.py"
+    script.write_text(_GLOO_RANK)
+    repo = str(Path(__file__).resolve().parents[1])
+    outs = multihost.run_ranks([str(script)], 2, timeout=180,
+                               env={"PYTHONPATH": repo, multihost.TIMEOUT_ENV: "60"},
+                               cwd=repo)
+    assert outs[0].count(" ok") == 2 and "backend gloo" in outs[0], outs[0]
