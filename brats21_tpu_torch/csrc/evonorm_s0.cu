@@ -32,6 +32,13 @@
 // evonorm_apply: 16-byte loads and stores, gamma, beta and the sample's
 // inv loaded once per thread for its channels, rows from the last.
 // Each thread keeps several rows' loads in flight in both kernels.
+//
+// A volume sharded over ranks needs the group statistics of every slab
+// before the apply, so two more entry points split the call:
+// brats_evonorm_s0_stats launches the statistics kernel alone, whose last
+// block writes the sample's (n, mean, M2) per group in fp64 instead of inv;
+// the caller merges the ranks' triples into inv; brats_evonorm_s0_apply
+// launches the apply kernel alone on that inv.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -98,13 +105,14 @@ __device__ __forceinline__ void warp_merge(float& n, float& m, float& M2) {
   }
 }
 
-// part: [B, P, G, 3] (n, mean, M2); inv: [B, G]; tickets: [B], zero.
+// part: [B, P, G, 3] (n, mean, M2); inv: [B, G]; tickets: [B], zero;
+// stats: null, or [B, G, 3] fp64 (n, mean, M2), written instead of inv.
 // three blocks an SM with six rows in flight a thread: measured faster than
 // four blocks with four rows (64 registers) and than eight rows, which spill
 template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS, 3)
 evonorm_stats(const T* __restrict__ x, float* __restrict__ part, float* __restrict__ inv,
-              unsigned* __restrict__ tickets, Plan p) {
+              double* __restrict__ stats, unsigned* __restrict__ tickets, Plan p) {
   __shared__ float s_mean[THREADS * VEC];  // [row lane][channel]
   __shared__ float s_m2[THREADS * VEC];
   __shared__ float s_n[THREADS];           // rows seen by each row lane
@@ -223,7 +231,12 @@ evonorm_stats(const T* __restrict__ x, float* __restrict__ part, float* __restri
         s_cnt[g] = r0;
         s_mu[g] = r1 / (r0 > 0.0 ? r0 : 1.0);
       }
-      if (lane == 0 && sweep == 1) {
+      if (lane == 0 && sweep == 1 && stats != nullptr) {
+        double* o = stats + ((size_t)b * p.G + g) * 3;
+        o[0] = s_cnt[g];
+        o[1] = s_mu[g];
+        o[2] = r0;
+      } else if (lane == 0 && sweep == 1) {
         const double var = r0 / (s_cnt[g] - 1.0 > 1.0 ? s_cnt[g] - 1.0 : 1.0);
         inv[b * p.G + g] = (float)(1.0 / sqrt(var + (double)p.eps));
       }
@@ -283,34 +296,81 @@ evonorm_apply(const T* __restrict__ x, T* __restrict__ y, const float* __restric
         apply(*reinterpret_cast<const Vec<T, VEC>*>(xs + r * p.C));
 }
 
+enum Mode { kBoth = 0, kStats = 1, kApply = 2 };
+
+struct Args {
+  const void* x;
+  void* y;
+  const void* gamma;
+  const void* beta;
+  float* part;          // the statistics' partials (kBoth, kStats), then inv (kBoth)
+  const float* inv;     // kApply: [B, G]
+  double* stats;        // kStats: [B, G, 3]
+  unsigned* tickets;
+  int B, blocks, apply_blocks;
+};
+
 template <typename T, int VEC>
-cudaError_t launch(const void* x, void* y, const void* gamma, const void* beta, float* part,
-                   unsigned* tickets, int B, int blocks, int apply_blocks, const Plan& p,
-                   cudaStream_t s) {
-  float* inv = part + (size_t)B * blocks * p.G * 3;
-  evonorm_stats<T, VEC><<<dim3(blocks, B), THREADS, 0, s>>>(static_cast<const T*>(x), part,
-                                                            inv, tickets, p);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  evonorm_apply<T, VEC><<<dim3(apply_blocks, B), THREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), inv, p);
+cudaError_t launch(Mode mode, const Args& a, const Plan& p, cudaStream_t s) {
+  const float* inv = a.inv;
+  if (mode != kApply) {
+    float* inv_out = a.part + (size_t)a.B * a.blocks * p.G * 3;
+    evonorm_stats<T, VEC><<<dim3(a.blocks, a.B), THREADS, 0, s>>>(
+        static_cast<const T*>(a.x), a.part, inv_out, mode == kStats ? a.stats : nullptr,
+        a.tickets, p);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess || mode == kStats) return e;
+    inv = inv_out;
+  }
+  evonorm_apply<T, VEC><<<dim3(a.apply_blocks, a.B), THREADS, 0, s>>>(
+      static_cast<const T*>(a.x), static_cast<T*>(a.y), static_cast<const float*>(a.gamma),
+      static_cast<const float*>(a.beta), inv, p);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(int vec, const void* x, void* y, const void* gamma, const void* beta,
-                     float* part, unsigned* tickets, int B, int blocks, int apply_blocks,
-                     const Plan& p, cudaStream_t s) {
+cudaError_t dispatch(int vec, Mode mode, const Args& a, const Plan& p, cudaStream_t s) {
   switch (vec) {
-    case 1: return launch<T, 1>(x, y, gamma, beta, part, tickets, B, blocks, apply_blocks, p, s);
-    case 2: return launch<T, 2>(x, y, gamma, beta, part, tickets, B, blocks, apply_blocks, p, s);
-    case 4: return launch<T, 4>(x, y, gamma, beta, part, tickets, B, blocks, apply_blocks, p, s);
+    case 1: return launch<T, 1>(mode, a, p, s);
+    case 2: return launch<T, 2>(mode, a, p, s);
+    case 4: return launch<T, 4>(mode, a, p, s);
     case 8:
-      if constexpr (sizeof(T) == 2)
-        return launch<T, 8>(x, y, gamma, beta, part, tickets, B, blocks, apply_blocks, p, s);
+      if constexpr (sizeof(T) == 2) return launch<T, 8>(mode, a, p, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// checks the arguments, fills the plan and launches on `device`, leaving
+// the caller's current device as it was
+int run(Mode mode, const Args& a, long long S, int C, int groups, int dtype, int vec, float eps,
+        int device, void* stream) {
+  if (a.B <= 0 || S <= 0 || C <= 0) return 0;
+  const int G = groups < C ? groups : C;
+  if (vec < 1 || C % vec != 0 || C / vec > THREADS || C % G != 0 || G > MAX_GROUPS ||
+      a.blocks < 1 || a.apply_blocks < 1 || a.B > 65535)
+    return (int)cudaErrorInvalidValue;
+  Plan p;
+  p.S = S;
+  p.C = C;
+  p.G = G;
+  p.CG = C / G;
+  p.TPR = C / vec;
+  p.RPI = THREADS / p.TPR;
+  p.eps = eps;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  int current;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (dtype == 0)
+    e = dispatch<float>(vec, mode, a, p, s);
+  else if (dtype == 1)
+    e = dispatch<__nv_bfloat16>(vec, mode, a, p, s);
+  else if (dtype == 2)
+    e = dispatch<__half>(vec, mode, a, p, s);
+  else e = cudaErrorInvalidValue;
+  if (current != device) cudaSetDevice(current);
+  return (int)e;
 }
 
 }  // namespace
@@ -326,36 +386,31 @@ extern "C" int brats_evonorm_s0(const void* x, void* y, const void* gamma, const
                                 void* part, void* tickets, int B, long long S, int C,
                                 int groups, int dtype, int vec, int blocks, int apply_blocks,
                                 float eps, int device, void* stream) {
-  if (B <= 0 || S <= 0 || C <= 0) return 0;
-  const int G = groups < C ? groups : C;
-  if (vec < 1 || C % vec != 0 || C / vec > THREADS || C % G != 0 || G > MAX_GROUPS ||
-      blocks < 1 || apply_blocks < 1 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  Plan p;
-  p.S = S;
-  p.C = C;
-  p.G = G;
-  p.CG = C / G;
-  p.TPR = C / vec;
-  p.RPI = THREADS / p.TPR;
-  p.eps = eps;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  float* pf = static_cast<float*>(part);
-  unsigned* tk = static_cast<unsigned*>(tickets);
-  // launch on the tensors' device, and leave the caller's current device as it was
-  int current;
-  cudaError_t e = cudaGetDevice(&current);
-  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  if (dtype == 0)
-    e = dispatch<float>(vec, x, y, gamma, beta, pf, tk, B, blocks, apply_blocks, p, s);
-  else if (dtype == 1)
-    e = dispatch<__nv_bfloat16>(vec, x, y, gamma, beta, pf, tk, B, blocks, apply_blocks, p, s);
-  else if (dtype == 2)
-    e = dispatch<__half>(vec, x, y, gamma, beta, pf, tk, B, blocks, apply_blocks, p, s);
-  else e = cudaErrorInvalidValue;
-  if (current != device) cudaSetDevice(current);
-  return (int)e;
+  const Args a{x, y, gamma, beta, static_cast<float*>(part), nullptr, nullptr,
+               static_cast<unsigned*>(tickets), B, blocks, apply_blocks};
+  return run(kBoth, a, S, C, groups, dtype, vec, eps, device, stream);
+}
+
+// The statistics kernel alone: stats fp64 [B, G, 3] (n, mean, M2 of each
+// sample's groups) written; part fp32 [B * blocks * G * 3] scratch; tickets
+// as above. Same layout rules as brats_evonorm_s0.
+extern "C" int brats_evonorm_s0_stats(const void* x, void* part, void* stats, void* tickets,
+                                      int B, long long S, int C, int groups, int dtype,
+                                      int vec, int blocks, int device, void* stream) {
+  const Args a{x, nullptr, nullptr, nullptr, static_cast<float*>(part), nullptr,
+               static_cast<double*>(stats), static_cast<unsigned*>(tickets), B, blocks, 1};
+  return run(kStats, a, S, C, groups, dtype, vec, 0.0f, device, stream);
+}
+
+// The apply kernel alone: y = x * sigmoid(x) * inv * gamma + beta with inv
+// fp32 [B, G] given. Same layout rules as brats_evonorm_s0.
+extern "C" int brats_evonorm_s0_apply(const void* x, void* y, const void* gamma,
+                                      const void* beta, const void* inv, int B, long long S,
+                                      int C, int groups, int dtype, int vec, int apply_blocks,
+                                      int device, void* stream) {
+  const Args a{x, y, gamma, beta, nullptr, static_cast<const float*>(inv), nullptr, nullptr,
+               B, 1, apply_blocks};
+  return run(kApply, a, S, C, groups, dtype, vec, 0.0f, device, stream);
 }
 
 extern "C" const char* brats_evonorm_error_string(int code) {

@@ -31,6 +31,16 @@ ensemble's members are; and with none of TTA, sliding windows and STAPLE,
 whole cases are, with the meters and the report rows merged over the
 node's ranks afterwards. Each case is written once: by its rank when cases
 are striped, else by local rank 0.
+
+On a data×space topology (``Topology.space > 1``; engine.py:410-429,
+507-566, 852-860) plain evaluation — no TTA, sliding windows or STAPLE —
+stripes the cases over the data axis and Z-shards each case's volume over
+its space row (``parallel/distributed.py:spatial_sharded_forward``): every
+rank of the row holds the replicated heads, the loss is taken on them and
+one rank of the row counts and writes the case. ``_pad_case`` pads Z to a
+multiple of the space size on the host, so the sharded forward sees the
+volume the serial path would. TTA, sliding windows and STAPLE ignore the
+space axis there, as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -54,7 +64,7 @@ from ..ops.staple import staple_multichannel
 from ..ops.tta import main_head, tree_map, tta_mean_probs
 from ..parallel import multihost
 from ..parallel.distributed import (LocalGroup, gather_members, sharded_sliding_window,
-                                    sharded_tta_probs)
+                                    sharded_tta_probs, spatial_sharded_forward)
 from ..parallel.mesh import Topology
 from ..utils.meter import AverageMeter, ProgressMeter
 from ..utils.metrics import compute_case_metrics
@@ -215,12 +225,14 @@ class Engine:
 
     # --------------------------------------------------------------- evaluate
 
-    def _pad_case(self, img: np.ndarray, use_tta: bool, bucket: int = 8
-                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    def _pad_case(self, img: np.ndarray, use_tta: bool, bucket: int = 8,
+                  z_multiple: int = 1) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Host-side pad of [X,Y,Z,C] to multiples of ``bucket`` (8, the
         model's downsampling factor, or a multiple of it; ceil-before /
         floor-after, transforms.py:483-512); TTA additionally requires
-        X == Y (see ops/tta.py), padded at the end."""
+        X == Y (see ops/tta.py), padded at the end; Z is padded at its end
+        to a multiple of ``z_multiple`` (the space size, engine.py:753-778),
+        so the pad enters the global reductions as the ÷8 pad does."""
         padded, p_b, p_a = T.shape_to_divisible(img, k=bucket)
         if use_tta and padded.shape[0] != padded.shape[1]:
             side = max(padded.shape[0], padded.shape[1])
@@ -228,6 +240,10 @@ class Engine:
                      (0, 0), (0, 0)]
             padded = np.pad(padded, extra)
             p_a = p_a + np.array([extra[0][1], extra[1][1], 0])
+        pad_z = (-padded.shape[2]) % z_multiple
+        if pad_z:
+            padded = np.pad(padded, [(0, 0), (0, 0), (0, pad_z), (0, 0)])
+            p_a = p_a + np.array([0, 0, pad_z])
         return padded, p_b, p_a
 
     @staticmethod
@@ -245,7 +261,7 @@ class Engine:
 
     def member_probs(self, model: nn.Module, img: torch.Tensor, use_tta: bool = False,
                      sliding: bool = False, target: Any = None,
-                     local: Optional[LocalGroup] = None
+                     local: Optional[LocalGroup] = None, spatial: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(fp32 sigmoid probabilities [1, X, Y, Z, classes], loss) of one
         member (engine.py:431-498): plain, TTA, sliding window, or sliding
@@ -254,12 +270,22 @@ class Engine:
         the deep heads for the plain and TTA forwards (:492-498), of the
         stitched main logits for the sliding window (:455-467); else 0.
         With ``local`` (the node's ranks, all calling) the sliding windows
-        are striped over the ranks, else the TTA combos (engine.py:432-452)."""
+        are striped over the ranks, else the TTA combos (engine.py:432-452).
+        With ``spatial`` (every rank of the space row calling) the plain
+        forward runs Z-sharded over the row, with every head when there is
+        a target (engine.py:410-429)."""
         cfg = self.cfg
         x = img.to(torch.float32 if cfg.no_amp else torch.bfloat16)
         criterion = self.criterion if target is not None else None
         if target is not None and criterion is None:
             raise ValueError("evaluation with a target needs the engine's criterion")
+        if spatial:
+            out = spatial_sharded_forward(model, x, self.topo, full_outputs=target is not None,
+                                          no_amp=cfg.no_amp)
+            loss = (deep_supervision_loss(criterion, _ncdhw(out), target)
+                    if criterion is not None
+                    else torch.zeros((), dtype=torch.float32, device=x.device))
+            return torch.sigmoid(main_head(out).float()), loss
         if sliding:
             roi = tuple(cfg.sliding_window_size)
 
@@ -290,16 +316,18 @@ class Engine:
                   perform_staple: bool = False, staple_threshold: float = 0.5,
                   post_kwargs: Optional[Dict[str, Any]] = None,
                   local: Optional[LocalGroup] = None,
-                  member_stripe: bool = False) -> Dict[str, Any]:
+                  member_stripe: bool = False, spatial: bool = False) -> Dict[str, Any]:
         """One case through every member: the fused, brain-masked
         prediction [1, X, Y, Z, 3] on the card, the padded channels-last
         target (None without a seg), the members' mean loss (None without a
         seg) and the pads. With ``local`` every rank of the node calls it
         for the case: each member's TTA combos or windows are striped over
         the ranks, or with ``member_stripe`` the members themselves
-        (``engine.py:866-894``)."""
+        (``engine.py:866-894``). With ``spatial`` each member's forward is
+        Z-sharded over this rank's space row."""
         post_kwargs = post_kwargs or {}
-        padded, p_b, p_a = self._pad_case(batch["img"][0], use_tta, self.cfg.eval_bucket)
+        padded, p_b, p_a = self._pad_case(batch["img"][0], use_tta, self.cfg.eval_bucket,
+                                          z_multiple=self.topo.space)
         img = torch.from_numpy(padded.astype(np.float16)).to(self.device)[None]
         seg = batch.get("seg")
         target = target_cl = None
@@ -319,7 +347,8 @@ class Engine:
             per_member = gather_members(len(members), mine, results, shape, self.device,
                                         local)
         else:
-            per_member = (self.member_probs(model, img, use_tta, sliding, target, local)
+            per_member = (self.member_probs(model, img, use_tta, sliding, target, local,
+                                            spatial)
                           for model in members)
         probs_sum, loss_sum, posts = None, 0.0, []
         for probs, loss in per_member:
@@ -366,15 +395,19 @@ class Engine:
             raise ValueError("if save_seg, output_path is needed")
         case_parallel, member_stripe = self._parallel_mode(members, use_tta, sliding,
                                                            perform_staple)
+        spatial = self._spatial_mode(use_tta, sliding, member_stripe)
         topo = self.topo
         local = (topo.local_group, topo.local_rank, topo.local_size)
         if case_parallel:
-            # each rank takes cases local_rank::local_size, alone
-            loader = (loader.stripe(topo.local_rank, topo.local_size)
+            # each data index takes cases data_rank::data_size (its space
+            # row together, each case Z-sharded over the row)
+            loader = (loader.stripe(topo.data_rank, topo.data_size)
                       if hasattr(loader, "stripe") else
-                      [b for i, b in enumerate(loader) if i % topo.local_size == topo.local_rank])
+                      [b for i, b in enumerate(loader) if i % topo.data_size == topo.data_rank])
         collective = topo.local_size > 1 and not case_parallel
-        writes = not collective or topo.local_rank == 0
+        # a space row's first rank alone counts its cases
+        counts = not (case_parallel and spatial) or topo.space_rank == 0
+        writes = counts and (not collective or topo.local_rank == 0)
         progress = ProgressMeter(len(loader), [batch_time, data_time, losses,
                                                *metric_meters.values()],
                                  prefix=f"Epoch Valid: [{epoch}]")
@@ -387,8 +420,8 @@ class Engine:
             case = self.eval_case(members, batch, use_tta, sliding,
                                   perform_staple, staple_threshold, post_kwargs,
                                   local=local if collective else None,
-                                  member_stripe=member_stripe)
-            if case["loss"] is not None:
+                                  member_stripe=member_stripe, spatial=spatial)
+            if case["loss"] is not None and counts:
                 losses.update(case["loss"])
                 # metrics on the padded prediction and target (engine.py:905-914)
                 case_metrics = compute_case_metrics(case["fused"], case["target"],
@@ -470,6 +503,25 @@ class Engine:
                                 "ceil(%d/%d) members in sequence", len(members), n,
                                 len(members), n)
         return case_parallel, member_stripe
+
+    def _spatial_mode(self, use_tta: bool, sliding: bool, member_stripe: bool) -> bool:
+        """Whether each case's volume is Z-sharded over the space row: on
+        a topology with ``space > 1``, for plain evaluation and serial
+        STAPLE members, as the JAX engine's per-member eval function does
+        (engine.py:410-429); TTA, sliding windows and a member-striped
+        ensemble ignore the space axis there. Logged either way."""
+        space = self.topo.space
+        if space <= 1:
+            return False
+        if use_tta or sliding or member_stripe:
+            logger.info("space axis of %d: %s use the %d local ranks as on a data-only "
+                        "topology (the volume is not sharded)", space,
+                        "TTA" if use_tta else "sliding windows" if sliding
+                        else "STAPLE's striped members", self.topo.local_size)
+            return False
+        logger.info("each case's volume Z-sharded over a space row of %d ranks; cases "
+                    "striped over the %d rows", space, self.topo.data_size)
+        return True
 
     def _save_segmentation(self, batch: Dict[str, Any], fused: np.ndarray,
                            p_b: np.ndarray, p_a: np.ndarray, output_path: str,

@@ -19,7 +19,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels.evonorm import EvoNormS0Function
+from ..ops.kernels.evonorm import (EvoNormS0Function, evonorm_s0_apply, evonorm_s0_stats,
+                                   inv_std)
+from ..parallel import spatial
 from .equiunet import DeepHead, RefUnet
 from .layers import (Conv3d, Dropout, from_kernel_layout, global_avg_pool,
                      max_avg_pool, to_kernel_layout, upsample)
@@ -28,19 +30,30 @@ from .layers import (Conv3d, Dropout, from_kernel_layout, global_avg_pool,
 def group_std(x: torch.Tensor, groups: int, eps: float = 1e-5) -> torch.Tensor:
     """Per-(sample, group) std over (C/G, D, H, W) with the unbiased
     variance (equiunet2021.py:48-52), broadcast back to ``x``'s
-    ``[B, D, H, W, C]`` shape."""
+    ``[B, D, H, W, C]`` shape; on a slab, of the whole volume."""
     b, c = x.shape[0], x.shape[-1]
     g = x.reshape(b, -1, groups, c // groups)
-    n = g.shape[1] * g.shape[3]
-    var = g.var(dim=(1, 3), keepdim=True, unbiased=False) * (n / max(n - 1, 1))
+    slab = spatial.active()
+    if slab is None:
+        n = g.shape[1] * g.shape[3]
+        var = g.var(dim=(1, 3), keepdim=True, unbiased=False) * (n / max(n - 1, 1))
+    else:
+        cnt, _, m2 = spatial.group_moments(g.float(), slab).unbind(-1)
+        var = (m2 / (cnt - 1).clamp(min=1)).to(x.dtype)[:, None, :, None]
     return torch.sqrt(var + eps).expand(g.shape).reshape(x.shape)
 
 
 def instance_std(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Unbiased per-(sample, channel) spatial std of ``[B, D, H, W, C]``
-    (equiunet2021.py:41-45)."""
-    n = x.shape[1] * x.shape[2] * x.shape[3]
-    var = x.var(dim=(1, 2, 3), keepdim=True, unbiased=False) * (n / max(n - 1, 1))
+    (equiunet2021.py:41-45); on a slab, of the whole volume."""
+    slab = spatial.active()
+    if slab is None:
+        n = x.shape[1] * x.shape[2] * x.shape[3]
+        var = x.var(dim=(1, 2, 3), keepdim=True, unbiased=False) * (n / max(n - 1, 1))
+    else:
+        b, c = x.shape[0], x.shape[-1]
+        cnt, _, m2 = spatial.group_moments(x.reshape(b, -1, c, 1).float(), slab).unbind(-1)
+        var = (m2 / (cnt - 1).clamp(min=1)).to(x.dtype).reshape(b, 1, 1, 1, c)
     return torch.sqrt(var + eps)
 
 
@@ -63,7 +76,12 @@ class EvoNorm3D(nn.Module):
     ``gamma``, ``beta``, ``v`` and ``running_var`` have the reference's
     shape ``(1, C, 1, 1, 1)``; ``v`` and ``running_var`` are allocated in
     every form, so reference checkpoints load with a plain
-    ``load_state_dict``."""
+    ``load_state_dict``.
+
+    On a slab (``parallel/spatial.py``) S0's kernel form splits: the
+    statistics kernel's (n, mean, M2) of this slab, merged over the space
+    group in fp64, give inv, and the apply kernel runs on it; the other
+    forms' ``group_std`` / ``instance_std`` merge the same way."""
 
     def __init__(self, num_features: int, non_linear: bool = True, version: str = "S0",
                  efficient: bool = True, affine: bool = True, momentum: float = 0.9,
@@ -83,6 +101,14 @@ class EvoNorm3D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[1]
+        slab = spatial.active()
+        if self.version == "S0" and self.non_linear and self.efficient and self.affine \
+                and slab is not None:
+            xk = to_kernel_layout(x)
+            stats = spatial.merge_moments(evonorm_s0_stats(xk, min(self.groups, c)), slab.group)
+            return from_kernel_layout(evonorm_s0_apply(
+                xk, inv_std(stats, self.eps).to(x.device), self.gamma.reshape(c),
+                self.beta.reshape(c)))
         if self.version == "S0" and self.non_linear and self.efficient and self.affine:
             y = EvoNormS0Function.apply(to_kernel_layout(x), self.gamma.reshape(c),
                                         self.beta.reshape(c), min(self.groups, c),

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import (Conv3d, Dropout, get_act, get_norm_layer, global_avg_pool,
+from .layers import (Conv3d, Dropout, Upsample, get_act, get_norm_layer, global_avg_pool,
                      global_max_pool, kaiming_normal_fan_out, max_pool3d,
                      resize_trilinear, upsample)
 
@@ -185,14 +185,15 @@ def _up_match(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 class DeepHead(nn.Sequential):
-    """conv1x1 → ×scale trilinear upsample (equiunet2020.py:443-458); the
-    reference's Sequential puts the conv at key ``.0``."""
+    """conv1x1 → ×scale trilinear upsample (align_corners, torch
+    nn.Upsample's in equiunet2020.py:443-458); the reference's Sequential
+    puts the conv at key ``.0``."""
 
     def __init__(self, in_channels: int, num_classes: int, scale: int,
                  kernel_init=None):
         super().__init__(
             Conv3d(in_channels, num_classes, 1, kernel_init=kernel_init),
-            nn.Upsample(scale_factor=scale, mode="trilinear", align_corners=True))
+            Upsample(scale, align_corners=True))
 
 
 class _Unet2020(nn.Module):

@@ -12,6 +12,11 @@ does (``layers.py:155-158``), so everything after a BatchNorm runs in
 fp32. Parameter and buffer names are torch's (``weight``/``bias``,
 ``running_mean``/``running_var``), so reference checkpoints load with a
 plain ``load_state_dict``.
+
+Under ``parallel/spatial.py``'s slab context (a volume sharded on W over a
+space group) the convolutions, GroupNorm, InstanceNorm, the pools and the
+resizes take their sharded forms; BatchNorm in eval normalises by its
+running statistics and stays local.
 """
 
 from __future__ import annotations
@@ -21,10 +26,12 @@ from functools import partial
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.kernels.conv3d import Conv3x3x3Function
+from ..ops.kernels.conv3d import Conv3x3x3Function, conv3x3x3
+from ..parallel import spatial
 from ..parallel.mesh import batch_sharded, batch_sum
 
 
@@ -138,8 +145,13 @@ class GroupNorm(nn.Module):
         xf = to_kernel_layout(x).float()
         b, c = xf.shape[0], xf.shape[-1]
         g = xf.reshape(b, -1, self.groups, c // self.groups)
-        mean = g.mean(dim=(1, 3), keepdim=True)
-        var = (g - mean).square().mean(dim=(1, 3), keepdim=True)
+        slab = spatial.active()
+        if slab is None:
+            mean = g.mean(dim=(1, 3), keepdim=True)
+            var = (g - mean).square().mean(dim=(1, 3), keepdim=True)
+        else:
+            n, mean, m2 = spatial.group_moments(g, slab).unbind(-1)
+            mean, var = mean.float()[:, None, :, None], (m2 / n).float()[:, None, :, None]
         g = (g - mean) * torch.rsqrt(var + self.eps)
         y = g.reshape(xf.shape) * _per_channel(self.weight) + _per_channel(self.bias)
         return from_kernel_layout(y.to(x.dtype))
@@ -158,8 +170,14 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = to_kernel_layout(x).float()
-        mean = xf.mean(dim=(1, 2, 3), keepdim=True)
-        var = (xf - mean).square().mean(dim=(1, 2, 3), keepdim=True)
+        slab = spatial.active()
+        if slab is None:
+            mean = xf.mean(dim=(1, 2, 3), keepdim=True)
+            var = (xf - mean).square().mean(dim=(1, 2, 3), keepdim=True)
+        else:
+            b, c = xf.shape[0], xf.shape[-1]
+            n, mean, m2 = spatial.group_moments(xf.reshape(b, -1, c, 1), slab).unbind(-1)
+            mean, var = (t.float().reshape(b, 1, 1, 1, c) for t in (mean, m2 / n))
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         y = y * _per_channel(self.weight) + _per_channel(self.bias)
         return from_kernel_layout(y.to(x.dtype))
@@ -294,7 +312,13 @@ class Conv3d(nn.Conv3d):
     dilation 1, pad 1; ``layers.py:258-261``) goes to the hand-written
     :func:`conv3x3x3` through its trainable :class:`Conv3x3x3Function`,
     with a zero fp32 bias where the conv has none, at every width; every
-    other conv is ``F.conv3d``, as the JAX package leaves those to XLA."""
+    other conv is ``F.conv3d``, as the JAX package leaves those to XLA.
+
+    On a slab (``parallel/spatial.py``) a conv takes the planes its reach
+    needs from the slabs beside it and runs VALID on the sharded axis; the
+    kernel's case runs the kernel SAME on the extended slab, a fresh
+    contiguous tensor, and drops its first and last output plane, the only
+    ones that see the kernel's zero pad on that axis."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  dilation: int = 1, stride: int = 1, use_bias: bool = True,
@@ -316,15 +340,43 @@ class Conv3d(nn.Conv3d):
                 and self.groups == 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        slab = spatial.active()
+        if slab is not None:
+            return self._sharded(x, slab)
         w = self.weight.to(x.dtype)
         if self.uses_kernel:
-            bias = (self.bias.float() if self.bias is not None else
-                    torch.zeros(self.out_channels, dtype=torch.float32, device=x.device))
             y = Conv3x3x3Function.apply(
-                to_kernel_layout(x), w.permute(2, 3, 4, 1, 0).contiguous(), bias)
+                to_kernel_layout(x), w.permute(2, 3, 4, 1, 0).contiguous(), self._kernel_bias(x))
             return from_kernel_layout(y)
         return F.conv3d(x, w, None if self.bias is None else self.bias.to(x.dtype),
                         stride=self.stride, padding=self.padding, dilation=self.dilation)
+
+    def _kernel_bias(self, x: torch.Tensor) -> torch.Tensor:
+        """The kernel's fp32 bias: the conv's, or zeros."""
+        return (self.bias.float() if self.bias is not None else
+                torch.zeros(self.out_channels, dtype=torch.float32, device=x.device))
+
+    def _sharded(self, x: torch.Tensor, slab: "spatial.Slab") -> torch.Tensor:
+        w = self.weight.to(x.dtype)
+        if self.uses_kernel:
+            y = conv3x3x3(spatial.halo(x, 1, 1, slab), w.permute(2, 3, 4, 1, 0).contiguous(),
+                          self._kernel_bias(x))
+            return from_kernel_layout(y[:, :, :, 1:-1])
+        start, sizes = slab.level(x)
+        lo, hi = spatial.conv_reach(self.kernel_size[2], self.dilation[2], self.padding[2],
+                                    self.stride[2], start, x.shape[4], sum(sizes))
+        ext = from_kernel_layout(spatial.halo(x, lo, max(hi, 0), slab))
+        if hi < 0:
+            ext = ext.narrow(4, 0, ext.shape[4] + hi)
+
+        def conv(v):
+            return F.conv3d(v, w, None if self.bias is None else self.bias.to(x.dtype),
+                            stride=self.stride, padding=(*self.padding[:2], 0),
+                            dilation=self.dilation)
+
+        if x.shape[4] == 0:
+            return spatial.on_empty(conv, x, self.dilation[2] * (self.kernel_size[2] - 1) + 1)
+        return conv(ext)
 
 
 class ConvTranspose3d(nn.ConvTranspose3d):
@@ -412,11 +464,24 @@ class ConvAWS3d(WSConv3d):
 
 def max_pool3d(x: torch.Tensor, window: int = 2, stride: Optional[int] = None,
                ceil_mode: bool = False) -> torch.Tensor:
-    """MaxPool3d(2, 2) (equiunet2020.py:342; the ceil-mode variant :274)."""
+    """MaxPool3d(2, 2) (equiunet2020.py:342; the ceil-mode variant :274);
+    local on an aligned slab."""
+    slab = spatial.active()
+    if slab is not None:
+        spatial.check_pool(x, window, stride or window, slab)
+        if x.shape[4] == 0:
+            return spatial.on_empty(lambda v: F.max_pool3d(v, window, stride or window), x,
+                                    window)
     return F.max_pool3d(x, window, stride or window, ceil_mode=ceil_mode)
 
 
 def avg_pool3d(x: torch.Tensor, window: int = 2, stride: Optional[int] = None) -> torch.Tensor:
+    slab = spatial.active()
+    if slab is not None:
+        spatial.check_pool(x, window, stride or window, slab)
+        if x.shape[4] == 0:
+            return spatial.on_empty(lambda v: avg_pool3d(v.float(), window, stride), x,
+                                    window).to(x.dtype)
     if x.device.type == "cpu" and x.dtype == torch.bfloat16:
         # PyTorch's CPU avg_pool3d has no bf16 kernel: pool in fp32, as the
         # CUDA kernel accumulates anyway, and round once
@@ -431,22 +496,50 @@ def max_avg_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """[B, C, D, H, W] → [B, C]."""
-    return x.mean(dim=(2, 3, 4))
+    """[B, C, D, H, W] → [B, C]; on a slab the fp32 sums all-reduced over
+    the space group, divided by the whole volume's count."""
+    slab = spatial.active()
+    if slab is None:
+        return x.mean(dim=(2, 3, 4))
+    _, sizes = slab.level(x)
+    total = spatial.all_reduce(x.float().sum(dim=(2, 3, 4)), slab.group)
+    return (total / (x.shape[2] * x.shape[3] * sum(sizes))).to(x.dtype)
 
 
 def global_max_pool(x: torch.Tensor) -> torch.Tensor:
-    """[B, C, D, H, W] → [B, C]."""
-    return x.amax(dim=(2, 3, 4))
+    """[B, C, D, H, W] → [B, C]; on a slab the maxima all-reduced."""
+    slab = spatial.active()
+    if slab is None:
+        return x.amax(dim=(2, 3, 4))
+    local = (x.amax(dim=(2, 3, 4)).float() if x.shape[4] else
+             torch.full(x.shape[:2], -math.inf, device=x.device))
+    return spatial.all_reduce(local, slab.group, dist.ReduceOp.MAX).to(x.dtype)
 
 
 def resize_trilinear(x: torch.Tensor, out_shape: Sequence[int],
                      align_corners: bool = True) -> torch.Tensor:
     """Trilinear resize to the spatial ``out_shape`` (``layers.py:462-480``;
     ``align_corners=False`` is torch's half-pixel rule with the source
-    clamped at 0, as the JAX package's interpolation matrices have it)."""
-    return F.interpolate(x, size=tuple(out_shape), mode="trilinear",
-                         align_corners=align_corners)
+    clamped at 0, as the JAX package's interpolation matrices have it).
+
+    On a slab the sharded axis must grow by an integer factor: it is
+    interpolated from global coordinates (``spatial.resize_sharded_axis``),
+    then the other two axes, in fp32, rounded once to x's dtype."""
+    slab = spatial.active()
+    if slab is None:
+        return F.interpolate(x, size=tuple(out_shape), mode="trilinear",
+                             align_corners=align_corners)
+    # an empty slab scales its W as its D (the covered models resize alike)
+    scale, rest = (divmod(out_shape[2], x.shape[4]) if x.shape[4] else
+                   divmod(out_shape[0], x.shape[2]))
+    if rest or scale < 1:
+        raise ValueError(f"a resize of a slab of {x.shape[4]} planes to {out_shape[2]}: the "
+                         "sharded axis takes integer factors only")
+    y = spatial.resize_sharded_axis(x, scale, align_corners, slab) if scale > 1 else x.float()
+    if y.shape[4] == 0:
+        return y.new_zeros((*y.shape[:2], out_shape[0], out_shape[1], 0)).to(x.dtype)
+    return F.interpolate(y, size=(out_shape[0], out_shape[1], y.shape[4]), mode="trilinear",
+                         align_corners=align_corners).to(x.dtype)
 
 
 def upsample(x: torch.Tensor, scale_factor: int = 2,

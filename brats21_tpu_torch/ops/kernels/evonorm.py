@@ -27,6 +27,15 @@ does: the forward is the kernels, the backward autograd of
 :func:`evonorm_s0_plain` recomputed from the saved (x, γ, β), with no
 hand-written backward kernel, as the JAX package has none.
 
+The split entry points serve a volume sharded over ranks
+(``parallel/spatial.py``), whose group statistics must be summed across
+the slabs before the apply: :func:`evonorm_s0_stats` launches the
+statistics kernel alone and stops after its per-sample fp64 merge, writing
+the per-(sample, group) (n, mean, M2) in fp64 instead of inv; the caller
+merges the ranks' triples (Chan's formula, fp64) into inv
+(:func:`inv_std`); :func:`evonorm_s0_apply` launches the apply kernel
+alone. Each counts its own launches; the one-call path is unchanged.
+
 Layout contract (the JAX package's): x ``[B, D, H, W, C]`` contiguous,
 gamma and beta ``[C]`` fp32.
 """
@@ -44,6 +53,9 @@ from . import load_library
 
 #: launches (one per call: the statistics and the apply kernel) since the last reset
 launches = 0
+#: launches of the split entry points: the statistics kernel alone, the apply kernel alone
+stats_launches = 0
+apply_launches = 0
 
 SOURCE = "evonorm_s0.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -108,6 +120,42 @@ def evonorm_s0_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return out.reshape(x.shape).to(x.dtype)
 
 
+def evonorm_s0_stats_plain(x: torch.Tensor, groups: int = 8) -> torch.Tensor:
+    """The plain version of :func:`evonorm_s0_stats`: per (sample, group)
+    the count, mean and M2 (sum of squared deviations) over the spatial
+    axes × C/G channels, ``[B, G, 3]`` fp64, computed in fp64."""
+    b, c = x.shape[0], x.shape[-1]
+    g = min(groups, c)
+    xg = x.reshape(b, -1, g, c // g).double()
+    if xg.numel() == 0:                     # no rows: no count
+        mean = m2 = xg.new_zeros((b, g))
+    else:
+        mean = xg.mean(dim=(1, 3))
+        m2 = (xg - mean[:, None, :, None]).square().sum(dim=(1, 3))
+    return torch.stack([torch.full_like(mean, float(xg.shape[1] * (c // g))), mean, m2], -1)
+
+
+def inv_std(stats: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """inv = 1 / sqrt(M2 / max(n − 1, 1) + eps) ``[B, G]`` fp32 from
+    (n, mean, M2) ``[B, G, 3]``, in fp64 as the statistics kernel's merge
+    computes it."""
+    n, _, m2 = stats.double().unbind(-1)
+    return (1.0 / torch.sqrt(m2 / (n - 1.0).clamp(min=1.0) + eps)).float()
+
+
+def evonorm_s0_apply_plain(x: torch.Tensor, inv: torch.Tensor, gamma: torch.Tensor,
+                           beta: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`evonorm_s0_apply`: x·σ(x)·inv·γ + β in
+    fp32 (``evonorm_s0_plain``'s order), ``inv`` ``[B, G]``, output in x's
+    dtype."""
+    b, c = x.shape[0], x.shape[-1]
+    g = inv.shape[1]
+    xf = x.reshape(b, -1, c).float()
+    iv = inv.float().reshape(b, 1, g, 1).expand(b, 1, g, c // g).reshape(b, 1, c)
+    out = xf * torch.sigmoid(xf) * iv * gamma.reshape(1, 1, c) + beta.reshape(1, 1, c)
+    return out.reshape(x.shape).to(x.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = load_library(SOURCE)
@@ -115,6 +163,14 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 5
         + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.brats_evonorm_s0.restype = ctypes.c_int
+    lib.brats_evonorm_s0_stats.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 5
+        + [ctypes.c_int, ctypes.c_void_p])
+    lib.brats_evonorm_s0_stats.restype = ctypes.c_int
+    lib.brats_evonorm_s0_apply.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 5
+        + [ctypes.c_int, ctypes.c_void_p])
+    lib.brats_evonorm_s0_apply.restype = ctypes.c_int
     lib.brats_evonorm_error_string.argtypes = [ctypes.c_int]
     lib.brats_evonorm_error_string.restype = ctypes.c_char_p
     return lib
@@ -178,6 +234,86 @@ def evonorm_s0(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         raise RuntimeError(f"evonorm_s0 launch failed: "
                            f"{lib.brats_evonorm_error_string(rc).decode()}")
     launches += 1
+    return y
+
+
+def _device_checks(x: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {x.device}")
+    if x.dim() < 3:
+        raise ValueError(f"{what}: x must be [B, ..., C], got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what}: unsupported dtype {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: x must be contiguous")
+    if x.shape[0] > MAX_BATCH:
+        raise ValueError(f"{what}: batch {x.shape[0]} over {MAX_BATCH}")
+
+
+def evonorm_s0_stats(x: torch.Tensor, groups: int = 8) -> torch.Tensor:
+    """Per (sample, group) (n, mean, M2) ``[B, G, 3]`` fp64 of x
+    ``[B, ..., C]``: the statistics kernel alone, its partials merged in
+    fp64 by each sample's last block. CPU tensors take
+    :func:`evonorm_s0_stats_plain`; CUDA tensors launch the kernel."""
+    global stats_launches
+    if x.device.type == "cpu":
+        return evonorm_s0_stats_plain(x, groups)
+    _device_checks(x, "evonorm_s0_stats")
+    b, c = x.shape[0], x.shape[-1]
+    g = min(groups, c)
+    if c % g:
+        raise ValueError(f"evonorm_s0_stats: {c} channels not divisible by {g} groups")
+    s = x.numel() // (b * c)
+    if s == 0:                              # an empty slab: no count, no launch
+        return torch.zeros((b, g, 3), dtype=torch.float64, device=x.device)
+    plan = evonorm_plan(b, s, c, x.element_size(), math.gcd(x.data_ptr(), 16))
+    part = torch.empty(b * plan.blocks * g * 3, dtype=torch.float32, device=x.device)
+    stats = torch.empty((b, g, 3), dtype=torch.float64, device=x.device)
+    dev = x.device.index
+    lib = _library()
+    rc = lib.brats_evonorm_s0_stats(
+        x.data_ptr(), part.data_ptr(), stats.data_ptr(), _tickets(x.device).data_ptr(), b, s,
+        c, g, _DTYPES[x.dtype], plan.vec, plan.blocks, dev,
+        torch._C._cuda_getCurrentRawStream(dev))
+    if rc != 0:
+        raise RuntimeError(f"evonorm_s0_stats launch failed: "
+                           f"{lib.brats_evonorm_error_string(rc).decode()}")
+    stats_launches += 1
+    return stats
+
+
+def evonorm_s0_apply(x: torch.Tensor, inv: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor) -> torch.Tensor:
+    """x·σ(x)·inv·γ + β of x ``[B, ..., C]`` with ``inv`` ``[B, G]`` fp32
+    (G groups of C/G channels): the apply kernel alone, output in x's dtype.
+    CPU tensors take :func:`evonorm_s0_apply_plain`; CUDA tensors launch
+    the kernel."""
+    global apply_launches
+    if x.device.type == "cpu":
+        return evonorm_s0_apply_plain(x, inv, gamma, beta)
+    _device_checks(x, "evonorm_s0_apply")
+    b, c = x.shape[0], x.shape[-1]
+    g = inv.shape[-1]
+    _check(x, gamma, beta, g)
+    if inv.shape != (b, g) or inv.dtype != torch.float32 or not inv.is_contiguous() \
+            or inv.device != x.device or g != min(g, c):
+        raise ValueError(f"evonorm_s0_apply: inv must be fp32 [{b}, G] on x's device, "
+                         f"got {inv.dtype} {tuple(inv.shape)}")
+    s = x.numel() // (b * c)
+    y = torch.empty_like(x)
+    if s == 0:                              # an empty slab: nothing to launch
+        return y
+    plan = evonorm_plan(b, s, c, x.element_size(), math.gcd(x.data_ptr(), 16))
+    dev = x.device.index
+    lib = _library()
+    rc = lib.brats_evonorm_s0_apply(
+        x.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(), inv.data_ptr(), b, s,
+        c, g, _DTYPES[x.dtype], plan.vec, plan.apply_blocks, dev,
+        torch._C._cuda_getCurrentRawStream(dev))
+    if rc != 0:
+        raise RuntimeError(f"evonorm_s0_apply launch failed: "
+                           f"{lib.brats_evonorm_error_string(rc).decode()}")
+    apply_launches += 1
     return y
 
 

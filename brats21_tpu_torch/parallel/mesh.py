@@ -1,8 +1,12 @@
-"""The ranks of a run, their devices and the process group of the data axis.
+"""The ranks of a run, their devices and the process groups of its axes.
 
-Port of ``brats21_tpu/parallel/mesh.py`` without the spatial axis: the JAX
-package's ``data`` axis over a process's local devices is the group of a
-node's local ranks here (:class:`Topology`). Each local rank runs on
+Port of ``brats21_tpu/parallel/mesh.py``: the JAX package's mesh of a
+process's local devices, shaped ``(data, space)``, is a node's local ranks
+here (:class:`Topology`), local rank ``r`` at data index ``r // space`` and
+space index ``r % space``, so the ranks of one space row are adjacent. The
+node's group carries the data axis; each space row has a group of its own,
+over which a volume is sharded on Z (``parallel/spatial.py``). The CLIs
+build ``space=1``, as the JAX CLIs do. Each local rank runs on
 ``cuda:(LOCAL_RANK % device_count)``; the collective backend is ``nccl``
 when every rank has a card of its own, ``gloo`` when local ranks outnumber
 the cards or several nodes on one host share one (NCCL refuses two ranks
@@ -60,8 +64,9 @@ class Topology:
     """One rank's place in the run: global, node and local rank and size,
     its device, the backend, the group of its node's local ranks (None when
     the node has one rank), a group of every rank for the global batch's
-    sums (apart from DDP's own, so their collectives never interleave) and
-    the rendezvous store."""
+    sums (apart from DDP's own, so their collectives never interleave), the
+    rendezvous store, and the spatial axis: ``space`` ranks a row, this
+    rank's index in its row and the row's group (None at ``space=1``)."""
 
     rank: int = 0
     world_size: int = 1
@@ -74,10 +79,23 @@ class Topology:
     local_group: Optional[dist.ProcessGroup] = None
     batch_group: Optional[dist.ProcessGroup] = None
     store: Optional[dist.Store] = None
+    space: int = 1
+    space_rank: int = 0
+    space_group: Optional[dist.ProcessGroup] = None
 
     @property
     def distributed(self) -> bool:
         return self.world_size > 1
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's index on the node's data axis."""
+        return self.local_rank // self.space
+
+    @property
+    def data_size(self) -> int:
+        """The node's data axis: its local ranks over the space axis."""
+        return self.local_size // self.space
 
     @property
     def primary(self) -> bool:
@@ -114,17 +132,23 @@ def choose_backend(device: torch.device, local_size: int, store=None, rank: int 
     return "nccl" if len(cards) == world else "gloo"
 
 
-def init_topology(device_spec: str = "0") -> Topology:
+def init_topology(device_spec: str = "0", space: int = 1) -> Topology:
     """The run's :class:`Topology`. One process (no ``torchrun``
     environment): ``--device``'s device, no group. Under ``torchrun``: the
     local rank's card is made current, the process group is brought up once
     (:func:`multihost.maybe_initialize_distributed`) with the backend
-    :func:`choose_backend` picks, and one group per node is made for the
-    data axis."""
+    :func:`choose_backend` picks, one group per node is made for the data
+    axis and, with ``space > 1``, one per space row (``space`` adjacent
+    local ranks; it must divide the node's local ranks)."""
     global _TOPOLOGY
     if not multihost.launched():
+        if space != 1:
+            raise ValueError(f"space={space} needs ranks under torchrun")
         return Topology(device=resolve_device(device_spec))
     if _TOPOLOGY is not None:
+        if _TOPOLOGY.space != space:
+            raise ValueError(f"the topology was made with space={_TOPOLOGY.space}, "
+                             f"not {space}")
         return _TOPOLOGY
     local_rank = int(os.environ["LOCAL_RANK"])
     local_size = int(os.environ["LOCAL_WORLD_SIZE"])
@@ -143,18 +167,30 @@ def init_topology(device_spec: str = "0") -> Topology:
         raise RuntimeError(f"rank {rank} of {world}: expected {nodes} nodes of "
                            f"{local_size} ranks, node-major (GROUP_RANK "
                            f"{os.environ.get('GROUP_RANK')})")
+    if space < 1 or local_size % space:
+        raise ValueError(f"space={space} does not divide the node's {local_size} local ranks")
     local_group = None
     for n in range(nodes):             # every rank makes every group, in order
         g = dist.new_group(list(range(n * local_size, (n + 1) * local_size)))
         if n == node:
             local_group = g
+    batch_group = dist.new_group(list(range(world)))
+    space_group = None
+    if space > 1:
+        for first in range(0, world, space):        # the rows, node by node
+            g = dist.new_group(list(range(first, first + space)))
+            if first == rank - rank % space:
+                space_group = g
     _TOPOLOGY = Topology(rank=rank, world_size=world, node=node, nodes=nodes,
                          local_rank=local_rank, local_size=local_size, device=device,
                          backend=backend,
                          local_group=local_group if local_size > 1 else None,
-                         batch_group=dist.new_group(list(range(world))), store=store)
-    logger.info("rank %d/%d: node %d/%d, local rank %d/%d on %s, backend %s",
-                rank, world, node, nodes, local_rank, local_size, device, backend)
+                         batch_group=batch_group, store=store, space=space,
+                         space_rank=local_rank % space, space_group=space_group)
+    logger.info("rank %d/%d: node %d/%d, local rank %d/%d (data %d/%d, space %d/%d) on %s, "
+                "backend %s", rank, world, node, nodes, local_rank, local_size,
+                local_rank // space, local_size // space, local_rank % space, space, device,
+                backend)
     return _TOPOLOGY
 
 

@@ -135,7 +135,22 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     one-process run's; then ``main_train_folds`` for one epoch at 128³
     over phase 12's five cases (folds 0, 2, 4 on node 0, 1 and 3 on node
     1), whose five fold directories the inference CLI serves as an
-    ensemble.
+    ensemble;
+24. the spatial axis: ``torch.distributed.run`` of two ranks of the card
+    as one space row (gloo), phase 4's padded 200×200×136 case and seeded
+    w48 weights Z-sharded over them (``spatial_sharded_forward``: slabs of
+    72 and 64 planes, each conv's halo exchanged through the host), each
+    rank's slab through B1 (on halo-extended slabs) and B2's split entry
+    points (statistics, merged over the row in fp64, then apply): (a) bf16,
+    the served label map held to one process's as closely as one process
+    holds itself (the case in a batch of two against a batch of one,
+    measured each run) and to the fp32 labels as closely as one process's
+    bf16 labels are, the probabilities' differences printed; (b) fp32, every head within
+    1e-4 of one process's; (c) ``Engine.evaluate`` on phase 12's val case
+    with its target in fp32, the loss within 1e-3 relative of one
+    process's and Dice printed; (d) each rank's launches a forward (14 B1, 21 + 21 split
+    B2, none of B2's one-call path), peak memory and seconds beside one
+    process's.
 
 Phase 1 also builds the native case loader (``csrc/nifti_native.cc``, g++);
 phase 6 times decode + crop + normalise on its path and on the numpy path
@@ -147,12 +162,13 @@ corrupt case's fallbacks exactly.
 Phase 8 also holds the conv's gradients with one weight applied three
 times in a forward (R2Unet's recurrent block). Phases 2 and 7 also hold the conv and EvoNorm at the sliding window's
 batches (2 × 128³) and the EDT on the validation loss's batch (12 masks of
-the padded case) against their plain versions.
+the padded case) against their plain versions; phase 2 also holds B2's
+split entry points (statistics, apply) and B1 at phase 24's slab shapes.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 Data and builds go under ``brats21_tpu_torch/_build/`` in this checkout.
-``python3 chip_smoke.py --rank-worker SPEC`` is one rank of phases 21-23,
+``python3 chip_smoke.py --rank-worker SPEC`` is one rank of phases 21-24,
 started by ``torch.distributed.run``.
 """
 
@@ -286,6 +302,37 @@ RESUME_PARAM_SHARE = 0.05
 # are those readings with room.
 DDP_LOSS_RTOL = dict(fp32=1e-4, bf16=5e-3)
 DDP_PARAM_SHARE = dict(fp32=1e-3, bf16=1e-2)
+# phase 24: the served case Z-sharded over a space row of two ranks of the
+# card, against one process on the same weights: fp32 heads within 1e-4
+# absolute, the val loss within 1e-3 relative (both stated before the first
+# chip run). The val case runs in fp32: in bf16 its dice_hd loss, whose HD
+# term follows every voxel that crosses the threshold, read 1.4e-4 to
+# 1.2e-3 relative over three runs of phase 12's barely trained weights.
+# bf16 labels: the CPU tests' 99.9 % of voxels cannot hold with random
+# weights, where 8.7 % of the case's fp32 probabilities lie within 0.005 of
+# the threshold: one process alone, the case in a batch of two against a
+# batch of one, agrees on 99.829 % (its EvoNorm statistics sum in other
+# blocks), and the sharded run read 99.859 % (NVIDIA H100 80GB HBM3, 700 W).
+# So each run measures that floor and the sharded labels must reach it less
+# SPATIAL_LABEL_MARGIN (readings 1.3e-5 apart between the batch's two
+# samples), and must lie no further from the fp32 labels than one process's
+# bf16 labels do, less SPATIAL_FP32_LABEL_MARGIN (readings 2e-5 apart). A
+# forward launches on each rank 14 B1 (on halo-extended slabs; the 1x1s and
+# dilated convs stay cuDNN) and 21 each of B2's split statistics and apply,
+# none of B2's one-call path
+SPATIAL_SPACE = 2
+SPATIAL_FORWARD_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=0, evonorm_s0_stats=21,
+                                evonorm_s0_apply=21)
+SPATIAL_LABEL_TARGET = 0.999
+SPATIAL_LABEL_MARGIN = 5e-4
+SPATIAL_FP32_LABEL_MARGIN = 1e-4
+SPATIAL_FP32_ATOL = 1e-4
+SPATIAL_LOSS_RTOL = 1e-3
+# EvoNorm's split: the statistics read x once (x − mean, square, two adds an
+# element), the apply reads it again and writes the output (exp, add,
+# reciprocal, three multiplies and an add)
+EVONORM_STATS_OPS = 4
+EVONORM_APPLY_OPS = 7
 # phase 20: UNETR (ViT-B/16), served through windows of its patch, and
 # SegResNetVAE with its VAE term
 UNETR_ARGS = ("--model", "unet_tr", "--norm", "instance", "--criterion", "dice",
@@ -437,6 +484,90 @@ def check_evonorm(level_shape, dev, batch: int = 1) -> dict:
                 f"bound {b_ms:.4f} ms ({100 * b_ms / row['ms']:.1f} %), "
                 f"plain {row['plain_ms']:.4f} ms")
             del x, y, ref, diff
+    return dict(rows=rows, **total)
+
+
+def check_evonorm_split(level_shape, dev) -> dict:
+    """B2's split entry points against their plain versions at a path's
+    shapes (bf16) and on a 40³ block (fp32): the statistics kernel's
+    (n, mean, M2) against the fp64 plain statistics (counts equal, the inv
+    they give within one bf16 ulp, 2**-8 relative), the apply kernel on
+    the plain statistics' inv against the plain apply (one bf16 ulp
+    elementwise; fp32 1e-5)."""
+    import torch
+    from brats21_tpu_torch.ops.kernels.evonorm import (evonorm_plan, evonorm_s0_apply,
+                                                       evonorm_s0_apply_plain,
+                                                       evonorm_s0_stats,
+                                                       evonorm_s0_stats_plain, inv_std)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    total = {part: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0,
+                        max_abs_err=0.0) for part in ("stats", "apply")}
+    rows = []
+    for level, c, count in EVONORM_CALLS:
+        d, h, w = level_shape(level)
+        gamma = 1.0 + 0.1 * torch.randn((c,), generator=gen, device=dev)
+        beta = 0.1 * torch.randn((c,), generator=gen, device=dev)
+        errs32 = {}
+        for dtype, spatial in ((torch.float32, (40, 40, 40)), (torch.bfloat16, (d, h, w))):
+            x = (0.5 + 2.0 * torch.randn((1, *spatial, c), generator=gen, device=dev)).to(dtype)
+            stats = evonorm_s0_stats(x, 8)
+            ref = evonorm_s0_stats_plain(x, 8)
+            inv_k, inv_p = inv_std(stats), inv_std(ref)
+            std = (ref[..., 2] / ref[..., 0]).sqrt()
+            errs = dict(
+                inv_rel=((inv_k - inv_p).abs() / inv_p).max().item(),
+                mean_per_std=((stats[..., 1] - ref[..., 1]).abs() / std).max().item(),
+                m2_rel=((stats[..., 2] - ref[..., 2]).abs() / ref[..., 2]).max().item())
+            if not (torch.equal(stats[..., 0], ref[..., 0]) and errs["inv_rel"] <= 2.0 ** -8):
+                raise AssertionError(f"evonorm_s0_stats C={c} {dtype} at {spatial}: counts "
+                                     f"{stats[..., 0].tolist()} vs {ref[..., 0].tolist()}, "
+                                     f"{errs}")
+            y = evonorm_s0_apply(x, inv_p, gamma, beta)
+            want = evonorm_s0_apply_plain(x.float(), inv_p, gamma, beta)
+            diff = (y.float() - want).abs()
+            err = diff.max().item()
+            ok = (bool((diff <= 2.0 ** -8 * want.abs() + 1e-6).all())
+                  if dtype == torch.bfloat16 else err <= 1e-5)
+            if not ok:
+                raise AssertionError(f"evonorm_s0_apply C={c} {dtype} at {spatial}: max "
+                                     f"|err| {err:.3g}")
+            if dtype != torch.bfloat16:
+                errs32 = dict(errs, apply_max_abs_err=err)
+                continue
+            m = d * h * w
+            s_ms, _ = bound(EVONORM_STATS_OPS * m * c, PEAK_FP32, 2.0 * m * c)
+            a_ms, _ = bound(EVONORM_APPLY_OPS * m * c, PEAK_FP32, 4.0 * m * c + 8.0 * c)
+            plan = evonorm_plan(1, m, c, x.element_size())
+            row = dict(shape=[1, d, h, w, c], count=count,
+                       blocks=dict(stats=plan.blocks, apply=plan.apply_blocks),
+                       stats_errors=errs, apply_max_abs_err=err, fp32_40cubed=errs32,
+                       stats_ms=time_ms(lambda: evonorm_s0_stats(x, 8)),
+                       stats_plain_ms=time_ms(lambda: evonorm_s0_stats_plain(x, 8)),
+                       stats_bound_ms=s_ms,
+                       apply_ms=time_ms(lambda: evonorm_s0_apply(x, inv_p, gamma, beta)),
+                       apply_plain_ms=time_ms(
+                           lambda: evonorm_s0_apply_plain(x, inv_p, gamma, beta)),
+                       apply_bound_ms=a_ms)
+            rows.append(row)
+            for part, ops, nbytes in (("stats", EVONORM_STATS_OPS * m * c, 2.0 * m * c),
+                                      ("apply", EVONORM_APPLY_OPS * m * c,
+                                       4.0 * m * c + 8.0 * c)):
+                t = total[part]
+                t["ms"] += count * row[f"{part}_ms"]
+                t["plain_ms"] += count * row[f"{part}_plain_ms"]
+                t["bound_ms"] += count * row[f"{part}_bound_ms"]
+                t["ops_ms"] += count * ops / PEAK_FP32 * 1e3
+                t["bytes_ms"] += count * nbytes / PEAK_BYTES * 1e3
+            total["stats"]["max_abs_err"] = max(total["stats"]["max_abs_err"], errs["inv_rel"])
+            total["apply"]["max_abs_err"] = max(total["apply"]["max_abs_err"], err)
+            log(f"evonorm_s0 split C={c} at 1x{d}x{h}x{w}: stats {row['stats_ms']:.4f} ms "
+                f"(bound {s_ms:.4f}, plain {row['stats_plain_ms']:.4f}; inv rel err "
+                f"{errs['inv_rel']:.3g}, mean/std {errs['mean_per_std']:.3g}, M2 rel "
+                f"{errs['m2_rel']:.3g}), apply {row['apply_ms']:.4f} ms (bound {a_ms:.4f}, "
+                f"plain {row['apply_plain_ms']:.4f}; err {err:.3g})")
+            del x, y, want, diff
+    for t in total.values():
+        t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
     return dict(rows=rows, **total)
 
 
@@ -1874,13 +2005,14 @@ def unetr_phase(work: Path, train_data: Path, data: Path, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 21-23: ranks under torch.distributed.run
+# phases 21-24: ranks under torch.distributed.run
 # ---------------------------------------------------------------------------
 
 
 def rank_worker(spec_path: str) -> int:
-    """One rank of phases 21-23 (``--rank-worker SPEC``): runs the spec's
-    CLI jobs in turn with the kernels' counters probed, and writes this
+    """One rank of phases 21-24 (``--rank-worker SPEC``): runs the spec's
+    CLI (or phase 24's spatial) jobs in turn with the kernels' counters probed,
+    and writes this
     rank's results to ``<out>/rank<r>.json`` (and its final parameters of a
     train job to ``params_rank<r>.pt``)."""
     import torch
@@ -1888,7 +2020,7 @@ def rank_worker(spec_path: str) -> int:
     from brats21_tpu_torch.parallel import multihost
     from brats21_tpu_torch.parallel.mesh import init_topology
     spec = json.loads(Path(spec_path).read_text())
-    topo = init_topology("0")
+    topo = init_topology("0", space=spec.get("space", 1))
     dev = topo.device
     out = dict(rank=topo.rank, node=topo.node, local_rank=topo.local_rank,
                backend=topo.backend, device=str(dev), card=torch.cuda.get_device_name(dev),
@@ -1922,7 +2054,9 @@ def rank_worker(spec_path: str) -> int:
         saved.clear()
         tally = Tally()
         t0 = time.time()
-        if job["cli"] == "train":
+        if job["cli"] == "spatial":
+            run = spatial_rank_job(job, topo, Path(spec["out"]))
+        elif job["cli"] == "train":
             from brats21_tpu_torch.cli.main_train import main as cli
             probe = StepProbe(tally)
             try:
@@ -1962,11 +2096,11 @@ def rank_worker(spec_path: str) -> int:
 
 
 def launch_ranks(work: Path, name: str, jobs: list, nproc: int = 2, nnodes: int = 1,
-                 timeout: float = 600) -> list:
+                 timeout: float = 600, space: int = 1) -> list:
     """``jobs`` on ``nnodes`` × ``nproc`` ranks of this card (one
-    ``torch.distributed.run`` a node, all started together); each rank's
-    results by global rank. Fails when a rank fails or outlives
-    ``timeout``; every process started is stopped."""
+    ``torch.distributed.run`` a node, all started together; ``space`` ranks
+    a space row); each rank's results by global rank. Fails when a rank
+    fails or outlives ``timeout``; every process started is stopped."""
     import torch
     from brats21_tpu_torch.parallel import multihost
     torch.cuda.synchronize()
@@ -1974,7 +2108,7 @@ def launch_ranks(work: Path, name: str, jobs: list, nproc: int = 2, nnodes: int 
     out = work / name
     out.mkdir()
     spec = out / "spec.json"
-    spec.write_text(json.dumps(dict(out=str(out), jobs=jobs)))
+    spec.write_text(json.dumps(dict(out=str(out), jobs=jobs, space=space)))
     repo = Path(__file__).resolve().parent
     t0 = time.time()
     outs = multihost.run_ranks([str(Path(__file__).resolve()), "--rank-worker", str(spec)],
@@ -1989,6 +2123,231 @@ def launch_ranks(work: Path, name: str, jobs: list, nproc: int = 2, nnodes: int 
         f"{ranks[0]['backend']}, in {time.time() - t0:.1f}s; "
         f"rank lines: {[ln for o in outs for ln in o.splitlines() if '), backend ' in ln][:4]}")
     return ranks
+
+
+def spatial_rank_job(job: dict, topo, out: Path) -> dict:
+    """One rank of phase 24's space row: (a) the served case's bf16 main
+    head Z-sharded over the row, after one untimed forward, with the
+    kernels' counters zeroed just before and read just after, its seconds
+    and peak memory; (b) every head in fp32; (c) ``Engine.evaluate`` on the
+    val case with its target, in fp32. Rank 0 saves the heads and labels; each rank
+    returns its checksums of them."""
+    import numpy as np
+    import torch
+    from brats21_tpu_torch.config import TrainConfig
+    from brats21_tpu_torch.data.pipeline import make_train_val_loaders
+    from brats21_tpu_torch.learning.engine import Engine
+    from brats21_tpu_torch.learning.losses import make_criterion
+    from brats21_tpu_torch.models import get_model
+    from brats21_tpu_torch.ops.kernels import conv3d, evonorm
+    from brats21_tpu_torch.parallel.distributed import spatial_sharded_forward
+    from brats21_tpu_torch.utils.weights import load_reference_pth
+    dev = topo.device
+    model = get_model({"model": "equiunet_assp_evo", "width": WIDTH})
+    model.load_state_dict(load_reference_pth(job["weights"]))
+    model = model.to(dev).eval()
+    x = torch.from_numpy(np.load(job["case"])).to(dev)[None]
+    with torch.inference_mode():
+        spatial_sharded_forward(model, x, topo)                      # untimed first use
+        torch.cuda.synchronize()
+        spatial_counts(conv3d, evonorm, reset=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        logits = spatial_sharded_forward(model, x, topo)
+        torch.cuda.synchronize()
+        res = dict(forward_s=time.time() - t0,
+                   forward_peak_bytes=torch.cuda.max_memory_allocated(dev),
+                   launches=spatial_counts(conv3d, evonorm))
+        labels = served_labels(logits, x)
+        heads32 = spatial_sharded_forward(model, x.float(), topo, full_outputs=True,
+                                          no_amp=True)
+        heads32 = [heads32[0], *heads32[1]]
+        torch.cuda.synchronize()
+    res["checksums"] = [float(t.double().abs().sum()) for t in [logits, labels, *heads32]]
+    if topo.space_rank == 0:
+        torch.save(dict(logits=logits.cpu(), labels=labels.cpu(),
+                        heads32=[h.cpu() for h in heads32]), out / "spatial_heads.pt")
+    del logits, labels, heads32
+    cfg = TrainConfig.from_yaml(job["val_config"])
+    cfg.additional_metrics, cfg.no_amp = [], True
+    val_model = get_model(cfg)
+    val_model.load_state_dict(load_reference_pth(job["val_weights"]))
+    val_model = val_model.to(dev).eval()
+    engine = Engine(cfg, dev, criterion=make_criterion(cfg), topo=topo)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    meters = engine.evaluate([val_model], make_train_val_loaders(cfg, dev)[1], 0)
+    torch.cuda.synchronize()
+    res.update(val_s=time.time() - t0, val_loss=float(meters["loss"].avg),
+               val_count=int(meters["loss"].count),
+               val_dice=np.asarray(meters["dice"].avg, dtype=np.float64).tolist())
+    return res
+
+
+def served_labels(logits, img):
+    """The served label map of a case's main-head logits: the fp32
+    sigmoid, thresholded, zeroed outside the brain (the engine's fusion of
+    one member), as BraTS labels 0/1/2/4 ``[X, Y, Z]`` uint8 on the host."""
+    import torch
+    from brats21_tpu_torch.data import transforms as T
+    from brats21_tpu_torch.ops.postprocess import post_process
+    fused = post_process(torch.sigmoid(logits.float()))
+    fused = fused * (img != 0).any(dim=-1, keepdim=True).to(fused.dtype)
+    return torch.from_numpy(T.change_label_3_to_4(T.multichannel_to_brats_labels(
+        fused[0].cpu().numpy())).astype("uint8"))
+
+
+def spatial_counts(conv3d, evonorm, reset: bool = False) -> dict:
+    """The spatial path's launch counters (B1, B2's one call, its split
+    statistics and apply), zeroed after the read with ``reset``."""
+    counts = dict(conv3x3x3=conv3d.launches, evonorm_s0=evonorm.launches,
+                  evonorm_s0_stats=evonorm.stats_launches,
+                  evonorm_s0_apply=evonorm.apply_launches)
+    if reset:
+        conv3d.launches = evonorm.launches = evonorm.stats_launches = 0
+        evonorm.apply_launches = 0
+    return counts
+
+
+def spatial_phase(work: Path, case_img, val_run: Path, dev) -> dict:
+    """Phase 24: the served case (w48, bf16, seeded weights of phase 4, the
+    padded 200×200×136 case) Z-sharded over a space row of two ranks of the
+    card (``spatial_sharded_forward``, 72 + 64 planes), each rank's slab
+    through B1 and B2's split entry points, against the same weights in one
+    process: (a) bf16 labels and probabilities, beside one process's own
+    bf16 floor (the case as a batch of two) and the fp32 labels, (b) every
+    head in fp32,
+    (c) ``Engine.evaluate`` on phase 12's val case with its target in fp32
+    (loss and Dice), (d) each rank's launches a forward, peak memory and seconds
+    beside one process's."""
+    import numpy as np
+    import torch
+    from brats21_tpu_torch.config import TrainConfig
+    from brats21_tpu_torch.data.pipeline import make_train_val_loaders
+    from brats21_tpu_torch.learning.engine import Engine, forward_channels_last
+    from brats21_tpu_torch.learning.losses import make_criterion
+    from brats21_tpu_torch.models import get_model
+    from brats21_tpu_torch.ops.kernels import conv3d, evonorm
+    from brats21_tpu_torch.ops.tta import main_head
+    from brats21_tpu_torch.utils.weights import load_reference_pth
+    t_phase = time.time()
+    case = work / "spatial_case.npy"
+    np.save(case, case_img.astype(np.float16))
+    model = get_model({"model": "equiunet_assp_evo", "width": WIDTH})
+    model.load_state_dict(load_reference_pth(str(work / "best_model.pth")))
+    model = model.to(dev).eval()
+    x = torch.from_numpy(np.load(case)).to(dev)[None]
+    with torch.inference_mode():
+        forward_channels_last(model, x.to(torch.bfloat16))          # untimed first use
+        torch.cuda.synchronize()
+        spatial_counts(conv3d, evonorm, reset=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        one_logits = main_head(forward_channels_last(model, x.to(torch.bfloat16)))
+        torch.cuda.synchronize()
+        one = dict(forward_s=time.time() - t0, peak_bytes=torch.cuda.max_memory_allocated(dev),
+                   launches=spatial_counts(conv3d, evonorm, reset=True))
+        one_probs = torch.sigmoid(one_logits.float())
+        one_labels = served_labels(one_logits, x)
+        # the floor: the same case as a batch of two in one process
+        two_logits = main_head(forward_channels_last(
+            model, x.repeat(2, 1, 1, 1, 1).to(torch.bfloat16)))
+        two_labels = served_labels(two_logits[:1], x)
+        two_probs = torch.sigmoid(two_logits[:1].float())
+        del two_logits
+        out32 = forward_channels_last(model, x.float(), with_deep=True)
+        one_heads32 = [out32[0], *out32[1]]
+        f32_labels = served_labels(out32[0], x)
+    cfg = TrainConfig.from_yaml(str(val_run / "config.yaml"))
+    cfg.additional_metrics, cfg.no_amp = [], True
+    val_model = get_model(cfg)
+    val_model.load_state_dict(load_reference_pth(str(val_run / "best_model.pth")))
+    val_model = val_model.to(dev).eval()
+    t0 = time.time()
+    meters = Engine(cfg, dev, criterion=make_criterion(cfg)).evaluate(
+        [val_model], make_train_val_loaders(cfg, dev)[1], 0)
+    torch.cuda.synchronize()
+    one.update(val_s=time.time() - t0, val_loss=float(meters["loss"].avg),
+               val_dice=np.asarray(meters["dice"].avg, dtype=np.float64).tolist())
+    del model, val_model, x, out32
+    job = dict(cli="spatial", name="spatial", case=str(case),
+               weights=str(work / "best_model.pth"), val_config=str(val_run / "config.yaml"),
+               val_weights=str(val_run / "best_model.pth"))
+    ranks = launch_ranks(work, "spatial", [job], space=SPATIAL_SPACE)
+    runs = [r["runs"][0] for r in ranks]
+    got = torch.load(work / "spatial" / "spatial_heads.pt")
+    probs = torch.sigmoid(got["logits"].float())
+    share = float((got["labels"] == one_labels).float().mean())
+    floor = float((two_labels == one_labels).float().mean())
+    share_f32 = float((got["labels"] == f32_labels).float().mean())
+    one_f32 = float((one_labels == f32_labels).float().mean())
+    near = float(((torch.sigmoid(one_heads32[0].float()) - 0.5).abs() < 0.005).float().mean())
+    prob_diff = (probs - one_probs.cpu()).abs()
+    floor_diff = (two_probs - one_probs).abs()
+    heads_diff = [float((g - w.cpu()).abs().max()) for g, w in zip(got["heads32"], one_heads32)]
+    loss_rel = [abs(r["val_loss"] - one["val_loss"]) / abs(one["val_loss"]) for r in runs]
+    dice_diff = [max(abs(a - b) for a, b in zip(r["val_dice"], one["val_dice"])) for r in runs]
+    res = dict(space=SPATIAL_SPACE, padded_case=list(case_img.shape[:3]),
+               label_share=share, label_share_floor_batch_of_two=floor,
+               label_share_margin=SPATIAL_LABEL_MARGIN, label_share_target=SPATIAL_LABEL_TARGET,
+               label_share_vs_fp32=share_f32, one_process_label_share_vs_fp32=one_f32,
+               fp32_label_margin=SPATIAL_FP32_LABEL_MARGIN, fp32_probs_within_0005_of_half=near,
+               bf16_prob_max_abs_diff=float(prob_diff.max()),
+               bf16_prob_mean_abs_diff=float(prob_diff.mean()),
+               floor_prob_max_abs_diff=float(floor_diff.max()),
+               floor_prob_mean_abs_diff=float(floor_diff.mean()),
+               fp32_heads_max_abs_diff=heads_diff, fp32_atol=SPATIAL_FP32_ATOL,
+               val_loss_rel=loss_rel, val_loss_rtol=SPATIAL_LOSS_RTOL,
+               val_dice_max_abs_diff=dice_diff, one_process=one,
+               launches_per_rank=[r["launches"] for r in runs],
+               forward_s_per_rank=[r["forward_s"] for r in runs],
+               peak_gib_per_rank=[r["forward_peak_bytes"] / 2**30 for r in runs],
+               peak_gib_one=one["peak_bytes"] / 2**30,
+               val_s_per_rank=[r["val_s"] for r in runs],
+               val_loss_per_rank=[r["val_loss"] for r in runs],
+               val_count_per_rank=[r["val_count"] for r in runs])
+    del got, probs, prob_diff, floor_diff
+    torch.cuda.empty_cache()
+    if runs[0]["checksums"] != runs[1]["checksums"]:
+        raise AssertionError(f"phase 24: the ranks' heads differ: {runs[0]['checksums']} vs "
+                             f"{runs[1]['checksums']}")
+    for r, run in enumerate(runs):
+        if run["launches"] != SPATIAL_FORWARD_LAUNCHES:
+            raise AssertionError(f"phase 24 rank {r}: launches a forward {run['launches']}, "
+                                 f"want {SPATIAL_FORWARD_LAUNCHES}")
+    if one["launches"]["conv3x3x3"] != 14 or one["launches"]["evonorm_s0"] != 21:
+        raise AssertionError(f"phase 24 one process: launches {one['launches']}")
+    if share < floor - SPATIAL_LABEL_MARGIN or share_f32 < one_f32 - SPATIAL_FP32_LABEL_MARGIN:
+        raise AssertionError(
+            f"phase 24 bf16: labels agree with one process on {share:.6f} of voxels (one "
+            f"process's batch of two: {floor:.6f}, margin {SPATIAL_LABEL_MARGIN}), with the "
+            f"fp32 labels on {share_f32:.6f} (one process {one_f32:.6f}, margin "
+            f"{SPATIAL_FP32_LABEL_MARGIN})")
+    if not all(math.isfinite(d) and d <= SPATIAL_FP32_ATOL for d in heads_diff):
+        raise AssertionError(f"phase 24 fp32: heads differ from one process's by {heads_diff} "
+                             f"(limit {SPATIAL_FP32_ATOL})")
+    if not all(lr <= SPATIAL_LOSS_RTOL for lr in loss_rel) or \
+            any(r["val_count"] != 1 for r in runs):
+        raise AssertionError(f"phase 24 val: loss relative {loss_rel} (limit "
+                             f"{SPATIAL_LOSS_RTOL}), counts {[r['val_count'] for r in runs]}")
+    log(f"phase 24 Z-sharded over {SPATIAL_SPACE} ranks: bf16 labels equal to one process's on "
+        f"{share:.6f} of voxels (a fixed {SPATIAL_LABEL_TARGET} would not hold; one process's "
+        f"batch of two {floor:.6f}, margin {SPATIAL_LABEL_MARGIN}; {near:.4f} of fp32 "
+        f"probabilities within 0.005 of 0.5), to the fp32 labels {share_f32:.6f} (one process "
+        f"{one_f32:.6f}, margin {SPATIAL_FP32_LABEL_MARGIN}); probabilities max |diff| "
+        f"{res['bf16_prob_max_abs_diff']:.3g} (mean {res['bf16_prob_mean_abs_diff']:.3g}; the "
+        f"batch of two's {res['floor_prob_max_abs_diff']:.3g} / "
+        f"{res['floor_prob_mean_abs_diff']:.3g}); "
+        f"fp32 heads max |diff| {[f'{d:.3g}' for d in heads_diff]} (limit "
+        f"{SPATIAL_FP32_ATOL}); val loss relative {[f'{v:.3g}' for v in loss_rel]} (limit "
+        f"{SPATIAL_LOSS_RTOL}), Dice max |diff| {[f'{v:.3g}' for v in dice_diff]}; launches "
+        f"a forward per rank {res['launches_per_rank']}; forward s per rank "
+        f"{[round(v, 3) for v in res['forward_s_per_rank']]} vs one process "
+        f"{one['forward_s']:.3f}; peak GiB per rank "
+        f"{[round(v, 2) for v in res['peak_gib_per_rank']]} vs {res['peak_gib_one']:.2f}; "
+        f"val case s per rank {[round(v, 2) for v in res['val_s_per_rank']]} vs "
+        f"{one['val_s']:.2f}; in {time.time() - t_phase:.1f}s")
+    return res
 
 
 def label_share(a: Path, b: Path) -> float:
@@ -2354,6 +2713,7 @@ def main() -> int:
     from brats21_tpu_torch.data.transforms import shape_to_divisible
     from brats21_tpu_torch.models import get_model
     from brats21_tpu_torch.ops import kernels
+    from brats21_tpu_torch.parallel import spatial
 
     t_start = time.time()
     # fp32 references for the kernel and gradient checks; the CLIs turn
@@ -2419,6 +2779,22 @@ def main() -> int:
     evo_sw = check_evonorm(lambda level: tuple(s // 2 ** (level - 1) for s in SW_ROI), dev,
                            batch=SW_BATCH)
     torch.cuda.empty_cache()
+    # B2's split entry points and B1 at phase 24's slab shapes: rank 0's
+    # slab of the padded case (72 of its 136 planes on 2 ranks), B1's with
+    # one halo plane a side
+    slab_z = spatial.slab_bounds(padded[2], SPATIAL_SPACE)[1]
+
+    def slab_shape(level):
+        d, h, _ = level_shape(level)
+        return d, h, slab_z // 2 ** (level - 1)
+
+    evo_split = check_evonorm_split(slab_shape, dev)
+    conv_slab = check_conv(lambda level: (*slab_shape(level)[:2], slab_shape(level)[2] + 2),
+                           dev)
+    log(f"phase 2 at phase 24's slabs: B1 {conv_slab['ms']:.3f} ms a forward (bound "
+        f"{conv_slab['bound_ms']:.3f}, cuDNN {conv_slab['library_ms']:.3f}); B2 split: stats "
+        f"{evo_split['stats']['ms']:.3f} ms (bound {evo_split['stats']['bound_ms']:.3f}), "
+        f"apply {evo_split['apply']['ms']:.3f} ms (bound {evo_split['apply']['bound_ms']:.3f})")
     log(f"phase 2 kernels vs plain: {time.time() - t0:.1f}s; per sliding-window batch "
         f"(2×128³): conv {conv_sw['ms']:.3f} ms (bound {conv_sw['bound_ms']:.3f}, cuDNN "
         f"{conv_sw['library_ms']:.3f}), EvoNorm {evo_sw['ms']:.3f} ms (bound "
@@ -2639,6 +3015,10 @@ def main() -> int:
     # 23. two nodes: --on val striped, fold-parallel training
     nodes = nodes_phase(work, run_dir, train_data, val_data, data, dev)
 
+    # 24. the served case Z-sharded over a space row of two ranks
+    spatial_res = spatial_phase(work, shape_to_divisible(sample["img"])[0],
+                                Path(val["run_dir"]), dev)
+
     sliding_case, = ensemble["sliding"]["cases"]
     kernel_rows = []
     for name, route, source, replaces, tolerance, res, res_train, ms_per in (
@@ -2683,7 +3063,9 @@ def main() -> int:
                            "step_launches"][name],
                        ddp_train_step_per_rank=ddp["launches_per_step_per_rank"][name],
                        **{f"two_ranks_{k}_per_rank": [r[name] for r in v["launches_per_rank"]]
-                          for k, v in serve2.items()}),
+                          for k, v in serve2.items()},
+                       two_ranks_spatial_forward_per_rank=[
+                           r.get(name, 0) for r in spatial_res["launches_per_rank"]]),
                    shapes=res["rows"])
         if name == "conv3x3x3":
             row["model1"] = {
@@ -2704,6 +3086,19 @@ def main() -> int:
                              ("unetr_16ch_layers", nnunet["conv_unetr_16ch"]))}
             row["monai_zoo_launches_a_forward"] = {
                 k: v["launches"][0] for k, v in monai.items()}
+            row["spatial_slab_shapes"] = {k: conv_slab[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err", "rows")}
+        if name == "evonorm_s0":
+            # B2's split entry points, at phase 24's slab shapes, and their
+            # launches a forward on each rank of phase 24's space row
+            row["split"] = dict(
+                evo_split, launches_per_rank={
+                    part: [r[f"evonorm_s0_{part}"] for r in spatial_res["launches_per_rank"]]
+                    for part in ("stats", "apply")},
+                sources="evonorm_s0_stats / evonorm_s0_apply in "
+                        "brats21_tpu_torch/ops/kernels/evonorm.py",
+                tolerance="stats: counts equal, inv within 2**-8 relative; apply: bf16 "
+                          "2**-8*|ref| elementwise, fp32 1e-5 abs")
         if "scan_bound_ms" in res:
             row["scan_bound_ms"] = res["scan_bound_ms"]
             row["full_case_edt_sq"] = dict(ms=res["full_case_ms"],
@@ -2728,7 +3123,7 @@ def main() -> int:
                    ensemble=ensemble, native_loads=native_counts, docker=docker, watch=watch,
                    zoo_models=zoo, model1=model1, batchnorm=batchnorm, monai_zoo=monai,
                    nnunet=nnunet, unetr=unetr, ddp=ddp, serve_two_ranks=serve2,
-                   two_nodes=nodes, total_s=time.time() - t_start)
+                   two_nodes=nodes, spatial=spatial_res, total_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": kernel_rows}))

@@ -8,8 +8,9 @@ against autograd of their plain versions (one conv applied three times
 too), the model zoo's conv shapes (the MONAI-backed names' at the levels
 of a 128³ patch too), Model 1, R2Unet and the seven MONAI-backed names, and
 the sliding
-window and a dice_hd validation loss on the card against the CPU, and a
-gloo all-reduce of CUDA tensors between two ranks on one card. Marked
+window and a dice_hd validation loss on the card against the CPU, a
+gloo all-reduce of CUDA tensors between two ranks on one card, and B2's
+split statistics and apply entry points against their plain versions. Marked
 ``cuda``: without a card every test skips. On a machine with one, from the repository root:
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
@@ -28,7 +29,9 @@ from brats21_tpu_torch.ops.kernels.conv3d import (Conv3x3x3Function, conv3x3x3,
 from brats21_tpu_torch.ops.kernels.edt import (INF, envelope, envelope_mask,
                                                envelope_mask_plain, envelope_plain)
 from brats21_tpu_torch.ops.kernels.evonorm import (EvoNormS0Function, evonorm_s0,
-                                                   evonorm_s0_plain)
+                                                   evonorm_s0_apply, evonorm_s0_apply_plain,
+                                                   evonorm_s0_plain, evonorm_s0_stats,
+                                                   evonorm_s0_stats_plain, inv_std)
 
 pytestmark = pytest.mark.cuda
 
@@ -110,6 +113,44 @@ def test_evonorm_kernel_matches_plain(dev, shape, dtype):
     else:
         ref = evonorm_s0_plain(x.float(), gamma, beta)
         assert bool((diff <= 2.0 ** -8 * ref.abs() + 1e-6).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", EVO_CASES)
+def test_evonorm_split_matches_plain(dev, shape, dtype):
+    """B2's split entry points (a volume sharded over ranks): the
+    statistics kernel's (n, mean, M2) against the fp64 plain statistics —
+    counts equal, means within 1e-5 of the group's std, M2 and the inv it
+    gives within 1e-5 relative (fp32 Welford per thread, fp64 merge) — and
+    the apply kernel on the plain statistics' inv against the plain apply:
+    fp32 within 1e-5, bf16 within one bf16 ulp, 2**-8·|ref|. One launch
+    each, none of the one-call path's."""
+    gen = torch.Generator(device=dev).manual_seed(sum(shape) + 7)
+    c = shape[-1]
+    x = (0.5 + 2.0 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+    beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+    before = (evonorm.launches, evonorm.stats_launches, evonorm.apply_launches)
+    stats = evonorm_s0_stats(x, 8)
+    ref = evonorm_s0_stats_plain(x, 8)
+    inv = inv_std(ref)
+    y = evonorm_s0_apply(x, inv, gamma, beta)
+    torch.cuda.synchronize()
+    assert (evonorm.launches, evonorm.stats_launches, evonorm.apply_launches) == \
+        (before[0], before[1] + 1, before[2] + 1)
+    assert stats.dtype == torch.float64 and stats.shape == ref.shape
+    assert torch.equal(stats[..., 0], ref[..., 0])
+    std = (ref[..., 2] / ref[..., 0]).sqrt()
+    assert ((stats[..., 1] - ref[..., 1]).abs() <= 1e-5 * std).all()
+    torch.testing.assert_close(stats[..., 2], ref[..., 2], rtol=1e-5, atol=0)
+    torch.testing.assert_close(inv_std(stats), inv, rtol=1e-5, atol=0)
+    want = evonorm_s0_apply_plain(x.float(), inv, gamma, beta)
+    diff = (y.float() - want).abs()
+    assert y.dtype == dtype and y.shape == shape
+    if dtype == torch.float32:
+        assert diff.max().item() <= 1e-5
+    else:
+        assert bool((diff <= 2.0 ** -8 * want.abs() + 1e-6).all())
 
 
 @pytest.mark.parametrize("tap", [(1, 1, 1), (0, 0, 0), (2, 1, 0), (0, 2, 2)])

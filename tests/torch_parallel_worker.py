@@ -1,10 +1,12 @@
-"""One rank of the port's parallel tests (``test_torch_port_parallel.py``),
-started by ``torch.distributed.run`` on the CPU with gloo:
+"""One rank of the port's parallel tests (``test_torch_port_parallel.py``,
+``test_torch_port_spatial.py``), started by ``torch.distributed.run`` on
+the CPU with gloo:
 
     python -m torch.distributed.run --nproc_per_node 2 ... tests/torch_parallel_worker.py JOB
 
 ``JOB`` is a ``torch.save``d dict: ``kind`` names what to run, ``out`` the
-folder where each rank writes ``rank<r>.pt``. The inputs (weights as the
+folder where each rank writes ``rank<r>.pt``, ``space`` (1 unless given)
+the ranks of a space row. The inputs (weights as the
 port's state dicts, volumes as arrays) come made by the test, so this
 process imports neither JAX nor the test's helpers.
 """
@@ -209,13 +211,68 @@ def folds_cli(job, topo):
     return dict(history=history, seconds=time.time() - t0)
 
 
+def spatial(job, topo):
+    """The volume sharded over this rank's space row: the topology's axes,
+    halo exchanges and sharded convs of X-sharded volumes (every rank's
+    result gathered), single layers and the models' forwards on Z slabs,
+    and the engine's member forward on a slab."""
+    from brats21_tpu_torch.config import TrainConfig
+    from brats21_tpu_torch.learning.engine import Engine
+    from brats21_tpu_torch.learning.losses import make_criterion
+    from brats21_tpu_torch.parallel import spatial as sp
+    from brats21_tpu_torch.parallel.distributed import (halo_exchange, sharded_conv3d,
+                                                        spatial_sharded_forward)
+    r, n, group = topo.space_rank, topo.space, topo.space_group
+    out = dict(axes=(topo.data_rank, topo.data_size, r, n),
+               row=multihost.gather_objects(topo.rank, group), halo={}, conv={}, layers={},
+               forward={})
+    for key, (x, halo, sizes) in job["halo"].items():
+        start = sum(sizes[:r])
+        mine = torch.from_numpy(x)[:, :, start:start + sizes[r]]
+        out["halo"][key] = halo_exchange(mine, halo, group, dim=2, sizes=sizes)
+    for key, (x, w) in job["conv"].items():
+        per = x.shape[2] // n
+        mine = torch.from_numpy(x)[:, :, r * per:(r + 1) * per]
+        y = sharded_conv3d(mine, torch.from_numpy(w), group)
+        out["conv"][key] = sp.gather_planes(y, group, 2, [per] * n)
+    for key, (module, x) in job["layers"].items():
+        bounds = sp.slab_bounds(x.shape[4], n)
+        slab = sp.Slab(group, r, tuple(bounds), x.shape[2])
+        mine = torch.from_numpy(x)[..., bounds[r]:bounds[r + 1]].contiguous(
+            memory_format=torch.channels_last_3d)
+        with torch.no_grad(), sp.sharded(slab):
+            y = module.eval()(mine)
+            if y.dim() == 5:
+                y = sp.gather_planes(y, group, 4, slab.level(y)[1])
+        out["layers"][key] = y
+    for key, case in job["forward"].items():
+        model = _model(case["cfg"], case["state_dict"]).eval()
+        x = torch.from_numpy(case["x"])
+        try:
+            out["forward"][key] = dict(
+                main=spatial_sharded_forward(model, x, topo, no_amp=True),
+                full=spatial_sharded_forward(model, x, topo, full_outputs=True, no_amp=True))
+        except ValueError as e:
+            out["forward"][key] = dict(error=str(e))
+    if "member" in job:
+        m = job["member"]
+        cfg = TrainConfig(**m["train_cfg"])
+        engine = Engine(cfg, topo.device, criterion=make_criterion(cfg), topo=topo)
+        model = _model(m["cfg"], m["state_dict"]).eval()
+        with torch.inference_mode():
+            probs, loss = engine.member_probs(model, torch.from_numpy(m["x"]),
+                                              target=_ncdhw(m["seg"]), spatial=True)
+        out["member"] = dict(probs=probs, loss=float(loss))
+    return out
+
+
 JOBS = dict(folds_cli=folds_cli, ddp_steps=ddp_steps, sharded_inference=sharded_inference,
-            engine_eval=engine_eval, merges=merges, train_cli=train_cli)
+            engine_eval=engine_eval, merges=merges, train_cli=train_cli, spatial=spatial)
 
 
 def main(path):
     job = torch.load(path, weights_only=False)
-    topo = init_topology("cpu")
+    topo = init_topology("cpu", space=job.get("space", 1))
     out = {kind: JOBS[kind](job[kind], topo) for kind in job["kinds"]}
     torch.save(out, os.path.join(job["out"], f"rank{topo.rank}.pt"))
     multihost.shutdown()
