@@ -70,8 +70,9 @@ def build_train_parser() -> argparse.ArgumentParser:
     g.add_argument("--num_workers", type=int, default=4)
     g.add_argument("--wire", type=str, default="auto",
                    choices=["auto", "sparse", "dense"],
-                   help="accepted for the JAX package's command lines; its "
-                        "TPU eval wire format, ignored here")
+                   help="host<->device wire of the per-case eval: dense (fp16 "
+                        "in, fp32 out), sparse (brain-masked packed in, bit-packed "
+                        "out; ops/wire.py); auto probes the link once")
     g.add_argument("--eval_bucket", type=int, default=8,
                    help="pad eval volumes to multiples of this (a multiple of 8)")
     g.add_argument("--seed", type=int, default=123)
@@ -189,6 +190,9 @@ def build_inference_parser() -> argparse.ArgumentParser:
     g.add_argument("--cleaning_areas_threshold", type=int, default=10)
     g.add_argument("--replace_value", action="store_true", default=False)
     g.add_argument("--replace_value_threshold", type=int, default=20)
+    g.add_argument("--wire", type=str, default="auto",
+                   choices=["auto", "sparse", "dense"],
+                   help="host<->device wire format (see main_train --wire)")
     g.add_argument("--eval_bucket", type=int, default=8,
                    help="pad eval volumes to multiples of this (a multiple of 8)")
     return parser

@@ -55,6 +55,7 @@ from ..ops import kernels
 from ..parallel import multihost
 from ..parallel.mesh import init_topology
 from ..utils.meter import AverageMeter
+from ..utils.profiling import maybe_enable_from_env, tune_host_allocator
 from ..utils.reporting import EvaluationReport
 from ..utils.weights import load_reference_pth
 from .arguments import get_inference_args
@@ -109,6 +110,8 @@ def main(argv=None) -> Dict[str, AverageMeter]:
         logger.info("rank %d of %d (node %d of %d, local rank %d of %d), backend %s",
                     topo.rank, topo.world_size, topo.node, topo.nodes, topo.local_rank,
                     topo.local_size, topo.backend)
+    maybe_enable_from_env()
+    tune_host_allocator()
 
     # the first member's run config, with the inference flags (the
     # TrainConfig fields among them come through from_dict)

@@ -70,6 +70,7 @@ from ..learning.train_state import (TrainState, TrainStep, model_uses_rng,
 from ..models import get_model
 from ..parallel import multihost
 from ..parallel.mesh import init_topology
+from ..utils.profiling import maybe_enable_from_env, tune_host_allocator
 from ..utils.meter import AverageMeter, ProgressMeter
 from ..utils.reporting import EvaluationReport, TensorBoardLogger
 from .arguments import get_train_args
@@ -198,6 +199,8 @@ def _main(argv, total_start: float, stop: Dict[str, bool]) -> Dict[str, float]:
         logger.info("rank %d of %d (node %d of %d, local rank %d of %d), backend %s",
                     topo.rank, topo.world_size, topo.node, topo.nodes, topo.local_rank,
                     topo.local_size, topo.backend)
+    maybe_enable_from_env()
+    tune_host_allocator()
     tb = TensorBoardLogger(cfg.save_path, enabled=not cfg.no_tensorboard and primary)
 
     train_loader, valid_loader = make_train_val_loaders(cfg, device)

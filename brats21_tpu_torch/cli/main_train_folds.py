@@ -40,6 +40,7 @@ from ..models import get_model
 from ..parallel import multihost
 from ..parallel.folds import Fold, fold_seed, owned_folds, train_folds_epoch
 from ..parallel.mesh import init_topology
+from ..utils.profiling import maybe_enable_from_env, tune_host_allocator
 from .arguments import get_train_args
 from .main_inference import post_kwargs_from_cfg
 
@@ -59,6 +60,8 @@ def main(argv=None) -> Dict[int, List[float]]:
     os.makedirs(base_dir, exist_ok=True)
     logger = set_main_logger(os.path.join(base_dir, "logfile.log") if topo.primary else None,
                              verbosity=max(cfg.verbosity, 1))
+    maybe_enable_from_env()
+    tune_host_allocator()
     mine = owned_folds(N_FOLDS, topo.rank, topo.world_size)
     logger.info("rank %d of %d on %s (node %d of %d), backend %s: folds %s", topo.rank,
                 topo.world_size, device, topo.node, topo.nodes, topo.backend, mine)

@@ -107,6 +107,11 @@ class TrainConfig:
     # eval cases are padded to multiples of this (the reference's 8,
     # engine.py:192); the JAX package's coarser buckets cut its compiles
     eval_bucket: int = 8
+    # host↔device wire of the per-case eval path (JAX config.py:113-120):
+    # "dense" (fp16 volumes in, fp32 fused out), "sparse" (brain-masked
+    # packed volumes in, bit-packed fused out; ops/wire.py), "auto" (probe
+    # the link once and pick); BRATS21_SPARSE_WIRE=0/1 overrides it
+    wire: str = "auto"
 
     def validate(self) -> "TrainConfig":
         if self.model not in MODEL_CHOICES:
@@ -122,6 +127,8 @@ class TrainConfig:
         if self.fold is not None and self.fold not in (0, 1, 2, 3, 4):
             raise ValueError("fold must be in 0..4 or None")
         check_eval_bucket(self.eval_bucket)
+        if self.wire not in ("auto", "sparse", "dense"):
+            raise ValueError("wire must be auto|sparse|dense")
         return self
 
     # --- yaml roundtrip (config.yaml contract, main_train.py:67-69)

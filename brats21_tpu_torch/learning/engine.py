@@ -1,27 +1,45 @@
-"""Training epochs, and serial single-device evaluation: ensemble × TTA ×
-sliding windows → post-process or STAPLE → metrics, report and NIfTI.
+"""Training epochs, and the pipelined evaluation: ensemble × TTA × sliding
+windows → post-process or STAPLE → metrics, report and NIfTI.
 
 ``Engine.train_epoch`` ports ``brats21_tpu/learning/engine.py:256-348``:
 each batch crosses to the card as the JAX package's wire has it (fp16
 images, uint8 targets, fp32 distance maps for the boundary criteria, from
-pinned memory without blocking) and is cast there; step i−1's metrics are
-read only after step i is enqueued, so the card never waits on the host's
-read.
+pinned memory without blocking; ``BRATS21_TRAIN_WIRE=fp32`` sends images
+and targets as they are) and is cast there; step i−1's metrics are read
+only after step i is enqueued, so the card never waits on the host's read.
 
-``Engine.evaluate`` ports the serial branch of ``Engine.evaluate``
-(engine.py:392-505, 753-1197) with and without a target: pad each case to
-a multiple of ``--eval_bucket`` (``_pad_case``) and its target and
-distance map alike (``_pad_with``), copy it to the card in fp16 as the JAX
-package's dense wire does, run each member — the plain forward, the
-16-combo TTA mean, the sliding window, or sliding × TTA — and take the
-fp32 sigmoid of the main head; with a target, each member's loss too. The
-members' probabilities are averaged and post-processed, or each member is
-post-processed and STAPLE fuses them; the prediction is zeroed outside the
-brain. With a target, the case's metrics are taken on the padded
-prediction and target (Dice on the card, HD95 on the host), meters and the
-report take them, and the labels are un-padded, un-cropped and written.
-The loader decodes the next case in a background thread meanwhile; the
-JAX package's finish-stage thread is not ported.
+``Engine.evaluate`` ports the JAX package's pipelined ``evaluate``
+(engine.py:52-195, 664-742, 803-1175) with and without a target. Three
+host stages overlap the card:
+
+* **prep** (:class:`_IterStage`, one thread, ``BRATS21_EVAL_PIPELINE``
+  cases ahead of the card): pad each case to a multiple of the eval bucket
+  (``--eval_bucket``, overridden by ``BRATS21_EVAL_BUCKET``; ``_pad_case``)
+  and its target and distance map alike (``_pad_with``), and run the
+  wire's host half (``_pack_case_host``): the fp16 cast of the dense wire,
+  or the sparse wire's brain-mask bits and nonzero rows (``ops/wire.py``;
+  ``--wire``, ``BRATS21_SPARSE_WIRE``, and for ``auto`` a probe of the
+  link against ``BRATS21_WIRE_AUTO_MBPS``);
+* **the main thread** enqueues a case (:meth:`Engine.eval_case`): the copy
+  in (pinned, without blocking; the sparse wire unpacked on the card), each
+  member — the plain forward, the 16-combo TTA mean, the sliding window, or
+  sliding × TTA — with the fp32 sigmoid of its main head and, with a
+  target, its loss; the members' mean post-processed, or each member
+  post-processed and fused by STAPLE; the seal (zeroed outside the brain,
+  bit-packed on the card on the sparse wire) and the copy out into pinned
+  memory behind an event. Up to ``BRATS21_EVAL_PIPELINE`` cases (default
+  2) are in flight: case N is collected (its event waited on, the bits
+  unpacked on the host, its metrics taken: Dice on the card, HD95 on the
+  host) after case N+1 is enqueued;
+* **finish** (:class:`_SinkStage`, one ordered thread that only receives
+  numpy): meters, report rows, progress, TensorBoard, and the un-padded,
+  un-cropped labels written as NIfTI.
+
+``BRATS21_EVAL_STAGES=0`` runs prep and finish inline on the caller's
+thread. Every card launch stays on the main thread and its current stream
+(B2's statistics kernel shares one ticket buffer a device). ``batch_time``
+is the interval between collects, as in the JAX package (the save runs
+behind it), ``data_time`` the wait for the prep stage.
 
 With several local ranks under ``torchrun`` (``parallel/mesh.py``) the
 node's ranks share the evaluation as the JAX package's local mesh does
@@ -30,7 +48,10 @@ are striped over them (``parallel/distributed.py``); a homogeneous STAPLE
 ensemble's members are; and with none of TTA, sliding windows and STAPLE,
 whole cases are, with the meters and the report rows merged over the
 node's ranks afterwards. Each case is written once: by its rank when cases
-are striped, else by local rank 0.
+are striped, else by local rank 0. Where the ranks share a case, every
+rank enqueues the cases in one order on its main thread and collecting a
+case issues no collective, so such a path keeps ``BRATS21_EVAL_PIPELINE``
+cases in flight too.
 
 On a data×space topology (``Topology.space > 1``; engine.py:410-429,
 507-566, 852-860) plain evaluation — no TTA, sliding windows or STAPLE —
@@ -46,8 +67,10 @@ space axis there, as the JAX engine does.
 from __future__ import annotations
 
 import os
+import queue
+import threading
 import time
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +81,7 @@ from .. import get_logger
 from ..config import check_eval_bucket
 from ..data import transforms as T
 from ..data.nifti import write_nifti
+from ..ops import wire
 from ..ops.postprocess import post_process
 from ..ops.sliding_window import sliding_window_inference
 from ..ops.staple import staple_multichannel
@@ -73,6 +97,220 @@ from .losses import LossFn, deep_supervision_loss
 from .train_state import TrainState, TrainStep, swa_update
 
 logger = get_logger("engine")
+
+#: per-process cache of the measured host link bandwidth (wire="auto"), by device
+_WIRE_PROBE_MBPS: Dict[str, float] = {}
+#: seconds a stage's queue wait lasts before it re-checks its closed flag
+_POLL_S = 0.5
+#: seconds ``evaluate`` waits, on its way out, for a closed stage's thread
+_STAGE_JOIN_S = 60.0
+_STAGE_SENTINEL = object()
+
+
+def _close_source(src: Any) -> None:
+    close = getattr(src, "close", None)
+    if close is not None:
+        close()
+
+
+class _IterStage:
+    """One background thread mapping ``fn`` over ``src_iter`` through a
+    bounded queue, in order: the evaluation's prep stage runs ahead of the
+    card (JAX engine.py:52-97). An error in the source or in ``fn``
+    re-raises in the consumer; a consumer that stops early releases the
+    producer with :meth:`close`, and the producer then closes the source.
+    Every queue wait lasts at most ``_POLL_S`` and re-checks the closed
+    flag."""
+
+    def __init__(self, src_iter: Iterator, fn: Callable[[Any], Any], depth: int = 2,
+                 name: str = "eval-prep"):
+        self._q: "queue.Queue[Any]" = queue.Queue(maxsize=max(depth, 1))
+        self._err: Optional[BaseException] = None
+        self._closed = threading.Event()
+
+        def _put(item) -> bool:
+            while not self._closed.is_set():
+                try:
+                    self._q.put(item, timeout=_POLL_S)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def run():
+            try:
+                for item in src_iter:
+                    if not _put(fn(item)):
+                        return
+            except BaseException as e:  # noqa: BLE001 — re-raised in the consumer
+                self._err = e
+            finally:
+                _close_source(src_iter)
+                _put(_STAGE_SENTINEL)
+
+        self._t = threading.Thread(target=run, name=name, daemon=True)
+        self._t.start()
+
+    def close(self) -> None:
+        self._closed.set()
+
+    def wait(self, timeout: float) -> bool:
+        """Wait at most ``timeout`` s for the thread; whether it ended."""
+        self._t.join(timeout)
+        return not self._t.is_alive()
+
+    def __del__(self):
+        self.close()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        while True:
+            try:
+                item = self._q.get(timeout=_POLL_S)
+            except queue.Empty:
+                # a closed stage, or a producer gone without its sentinel
+                if (self._closed.is_set() or not self._t.is_alive()) and self._q.empty():
+                    item = _STAGE_SENTINEL
+                else:
+                    continue
+            if item is _STAGE_SENTINEL:
+                self.close()
+                if self._err is not None:
+                    raise self._err
+                raise StopIteration
+            return item
+
+
+class _InlineIter:
+    """Thread-free stand-in for :class:`_IterStage`
+    (``BRATS21_EVAL_STAGES=0``): maps on the caller's thread."""
+
+    def __init__(self, src_iter: Iterator, fn: Callable[[Any], Any]):
+        self._it, self._fn = src_iter, fn
+
+    def close(self) -> None:
+        _close_source(self._it)
+
+    def wait(self, timeout: float) -> bool:
+        return True
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self._fn(next(self._it))
+
+
+class _InlineSink:
+    """Thread-free stand-in for :class:`_SinkStage`."""
+
+    def __init__(self, fn: Callable[..., None]):
+        self._fn = fn
+
+    def submit(self, *args) -> None:
+        self._fn(*args)
+
+    def close(self) -> None:
+        pass
+
+    def join(self) -> None:
+        pass
+
+    def wait(self, timeout: float) -> bool:
+        return True
+
+
+class _SinkStage:
+    """One background thread running ``fn(*args)`` for each submission, in
+    submission order: the evaluation's finish stage (meters, report rows,
+    the NIfTI save) runs behind the card (JAX engine.py:131-195). An error
+    re-raises on the next :meth:`submit` or at :meth:`join`; ``submit``
+    after :meth:`close` raises rather than drop the work. Every queue wait
+    lasts at most ``_POLL_S`` and re-checks the closed flag."""
+
+    def __init__(self, fn: Callable[..., None], depth: int = 4, name: str = "eval-finish"):
+        self._q: "queue.Queue[Any]" = queue.Queue(maxsize=max(depth, 1))
+        self._err: Optional[BaseException] = None
+        self._closed = threading.Event()
+
+        def run():
+            while not self._closed.is_set():
+                try:
+                    item = self._q.get(timeout=_POLL_S)
+                except queue.Empty:
+                    continue
+                if item is _STAGE_SENTINEL:
+                    return
+                if self._err is not None:
+                    continue        # drain what is left after an error
+                try:
+                    fn(*item)
+                except BaseException as e:  # noqa: BLE001 — re-raised in the caller
+                    self._err = e
+
+        self._t = threading.Thread(target=run, name=name, daemon=True)
+        self._t.start()
+
+    def submit(self, *args) -> None:
+        while not self._closed.is_set():
+            if self._err is not None:
+                raise self._err
+            try:
+                self._q.put(args, timeout=_POLL_S)
+                return
+            except queue.Full:
+                continue
+        # a closed sink's thread never runs this item: dropping it silently
+        # could lose a NIfTI save on an error path
+        raise RuntimeError("_SinkStage.submit() after close(): work dropped")
+
+    def close(self) -> None:
+        """Release the thread without draining (error paths)."""
+        self._closed.set()
+
+    def __del__(self):
+        self.close()
+
+    def join(self) -> None:
+        """Run everything submitted, stop the thread, re-raise its error."""
+        while self._t.is_alive():
+            try:
+                self._q.put(_STAGE_SENTINEL, timeout=_POLL_S)
+                break
+            except queue.Full:
+                continue
+        while self._t.is_alive():
+            self._t.join(_POLL_S)
+        if self._err is not None:
+            raise self._err
+
+    def wait(self, timeout: float) -> bool:
+        """Wait at most ``timeout`` s for the thread (after :meth:`close`);
+        whether it ended."""
+        self._t.join(timeout)
+        return not self._t.is_alive()
+
+
+def probe_wire_bandwidth(device: torch.device) -> float:
+    """Host → ``device`` MB/s of an 8 MB buffer: the median of five timed
+    copies after one untimed warm-up, each ended by a tiny read back
+    (JAX engine.py:196-220). Cached per device for the process."""
+    device = torch.device(device)
+    key = str(device)
+    if key in _WIRE_PROBE_MBPS:
+        return _WIRE_PROBE_MBPS[key]
+    buf = torch.zeros(4 * 1024 * 1024, dtype=torch.float16)        # 8 MB
+    samples = []
+    for i in range(6):
+        t0 = time.perf_counter()
+        buf.to(device, copy=True)[:8].cpu()
+        if i > 0:   # the first copy pays the warm-up
+            samples.append(buf.nbytes / 1e6 / max(time.perf_counter() - t0, 1e-9))
+    med = float(np.median(samples))
+    _WIRE_PROBE_MBPS[key] = med
+    return med
 
 
 def forward_channels_last(model: nn.Module, x: torch.Tensor,
@@ -108,6 +346,7 @@ class Engine:
         self.topo = topo or Topology(device=device)
         self.global_step = 0
         self.val_step = 0
+        self._wire_resolved: Optional[str] = None
         # the batch index where the last train_epoch stopped early, or None
         self.last_epoch_stop: Optional[int] = None
 
@@ -123,17 +362,32 @@ class Engine:
     def batch_to_device(self, batch: Dict[str, Any], part: slice = slice(None)
                         ) -> Tuple[torch.Tensor, Any]:
         """(image, target) of a train batch's ``part`` on the card as NCDHW
-        views in channels_last_3d memory: fp16 images (fp32 under
-        ``no_amp``), uint8 targets cast to fp32 there, and the boundary
-        criteria's (seg, distance_map) pair (engine.py:326-327)."""
-        wire = np.float32 if self.cfg.no_amp else np.float16
-        img = self.to_device(batch["img"][part].astype(wire)).permute(0, 4, 1, 2, 3)
+        views in channels_last_3d memory, over the train wire
+        (:meth:`_train_wire_img`, :meth:`_train_wire_seg`), targets cast to
+        fp32 there, with the boundary criteria's (seg, distance_map) pair
+        (engine.py:326-327)."""
+        img = self.to_device(self._train_wire_img(batch["img"][part])).permute(0, 4, 1, 2, 3)
         target: Any = self.to_device(
-            batch["seg"][part].astype(np.uint8)).float().permute(0, 4, 1, 2, 3)
+            self._train_wire_seg(batch["seg"][part])).float().permute(0, 4, 1, 2, 3)
         if "boundary" in self.cfg.criterion:
             target = (target, self.to_device(
                 batch["distance_map"][part]).permute(0, 4, 1, 2, 3))
         return img, target
+
+    def _train_wire_img(self, arr: np.ndarray) -> np.ndarray:
+        """Training images cross as fp16 under amp (the step casts to bf16;
+        fp16 keeps 3 more mantissa bits), as they are under ``no_amp`` or
+        ``BRATS21_TRAIN_WIRE=fp32`` (JAX engine.py:350-359)."""
+        if self.cfg.no_amp or os.environ.get("BRATS21_TRAIN_WIRE") == "fp32":
+            return arr
+        return arr.astype(np.float16)
+
+    def _train_wire_seg(self, arr: np.ndarray) -> np.ndarray:
+        """Binary one-hot targets cross as uint8 (exact), as they are under
+        ``BRATS21_TRAIN_WIRE=fp32`` (JAX engine.py:361-366)."""
+        if os.environ.get("BRATS21_TRAIN_WIRE") == "fp32":
+            return arr
+        return arr.astype(np.uint8)
 
     def train_epoch(self, state: TrainState, step: TrainStep, loader, epoch: int,
                     should_stop: Optional[Callable[[], bool]] = None,
@@ -311,33 +565,123 @@ class Engine:
                 else torch.zeros((), dtype=torch.float32, device=x.device))
         return torch.sigmoid(main_head(out).float()), loss
 
-    def eval_case(self, members: List[nn.Module], batch: Dict[str, Any],
+    # ------------------------------------------------------------------ wire
+
+    def _resolve_wire(self) -> str:
+        """'sparse' or 'dense', resolved once per engine (JAX
+        engine.py:664-686) from, in order, ``BRATS21_SPARSE_WIRE``,
+        ``cfg.wire``, and for ``auto`` a probe of the host link against
+        ``BRATS21_WIRE_AUTO_MBPS`` (default 500 MB/s): slower links take
+        the sparse wire; the decision logged with its source (and for
+        ``auto`` the measured MB/s)."""
+        if self._wire_resolved is not None:
+            return self._wire_resolved
+        env = os.environ.get("BRATS21_SPARSE_WIRE")
+        if env is not None:
+            mode = "dense" if env in ("0", "false", "False") else "sparse"
+            why = f"BRATS21_SPARSE_WIRE={env}"
+        else:
+            mode = getattr(self.cfg, "wire", "auto")
+            why = f"--wire {mode}"
+            if mode == "auto":
+                mbps = probe_wire_bandwidth(self.device)
+                thresh = float(os.environ.get("BRATS21_WIRE_AUTO_MBPS", "500"))
+                mode = "sparse" if mbps < thresh else "dense"
+                why = f"--wire auto: link {mbps:.1f} MB/s against {thresh:.0f}"
+        logger.info("wire: %s (%s)", mode, why)
+        self._wire_resolved = mode
+        return mode
+
+    def _pack_case_host(self, padded: np.ndarray) -> Tuple:
+        """The host half of :meth:`_put_case`, pure numpy (the prep stage
+        runs it): the dense wire's fp16 cast, or the sparse wire's packed
+        mask and nonzero fp16 rows."""
+        if self._resolve_wire() == "dense":
+            return ("dense", padded.astype(np.float16))
+        return ("sparse", *wire.pack_volume(padded.astype(np.float16)))
+
+    def _put_case(self, shape: Tuple[int, ...], payload: Tuple) -> torch.Tensor:
+        """A case's fp16 [1, X, Y, Z, C] on the card from its wire payload:
+        the dense copy, or the sparse format unpacked on the card, exact."""
+        if payload[0] == "dense":
+            return self.to_device(payload[1])[None]
+        _, bits, vals = payload
+        return wire.unpack_volume_device(self.to_device(bits), self.to_device(vals),
+                                         tuple(shape[:3]))
+
+    @staticmethod
+    def _seal(fused: torch.Tensor, img: torch.Tensor, pack: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the fused prediction zeroed outside the brain (engine.py:259),
+        what crosses to the host): the masked prediction, or on the sparse
+        wire its bits packed on the card (32× fewer bytes than fp32; exact,
+        the prediction being binary)."""
+        brain = (img != 0).any(dim=-1, keepdim=True)
+        out = fused * brain.to(fused.dtype)
+        return out, (wire.pack_bits_device(out) if pack else out)
+
+    @staticmethod
+    def _copy_out(t: torch.Tensor) -> torch.Tensor:
+        """``t`` in host memory without blocking: on a card a pinned tensor
+        that holds it once the stream has passed the copy (CPU tensors as
+        they are)."""
+        if t.device.type != "cuda":
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return host.copy_(t, non_blocking=True)
+
+    # --------------------------------------------------------------- evaluate
+
+    def _eval_bucket(self) -> int:
+        """The eval pad: ``BRATS21_EVAL_BUCKET``, else ``cfg.eval_bucket``
+        (JAX engine.py:834-846), a multiple of 8."""
+        return check_eval_bucket(int(os.environ.get("BRATS21_EVAL_BUCKET", "0"))
+                                 or int(getattr(self.cfg, "eval_bucket", 8) or 8))
+
+    def prep_case(self, batch: Dict[str, Any], use_tta: bool = False,
+                  bucket: int = 8) -> Dict[str, Any]:
+        """A decoded case for :meth:`eval_case`, on the host (the prep
+        stage): the image padded to ``bucket`` (and Z to the space size) in
+        its wire's payload, the target and distance map padded alike, the
+        pads."""
+        padded, p_b, p_a = self._pad_case(batch["img"][0], use_tta, bucket,
+                                          z_multiple=self.topo.space)
+        seg = batch.get("seg")
+        tgt = self._pad_with(seg[0], p_b, p_a) if seg is not None else None
+        dm = None
+        if seg is not None and "boundary" in self.cfg.criterion and "distance_map" in batch:
+            dm = self._pad_with(batch["distance_map"][0], p_b, p_a)
+        return dict(batch=batch, shape=padded.shape, p_b=p_b, p_a=p_a, tgt_padded=tgt, dm=dm,
+                    wire=self._pack_case_host(padded))
+
+    def eval_case(self, members: List[nn.Module], case: Dict[str, Any],
                   use_tta: bool = False, sliding: bool = False,
                   perform_staple: bool = False, staple_threshold: float = 0.5,
                   post_kwargs: Optional[Dict[str, Any]] = None,
                   local: Optional[LocalGroup] = None,
                   member_stripe: bool = False, spatial: bool = False) -> Dict[str, Any]:
-        """One case through every member: the fused, brain-masked
-        prediction [1, X, Y, Z, 3] on the card, the padded channels-last
-        target (None without a seg), the members' mean loss (None without a
-        seg) and the pads. With ``local`` every rank of the node calls it
+        """Enqueue one prepped case (:meth:`prep_case`) through every
+        member, without waiting for the card (JAX ``dispatch``,
+        engine.py:1010-1067): the copy in, the members, the fusion, the
+        seal and the copy out. Returns the fused, brain-masked prediction
+        [1, X, Y, Z, 3] and the padded channels-last target (None without a
+        seg) on the card, and for :meth:`_collect` the copies in host
+        memory (the sealed prediction, the members' summed loss) and the
+        event after them. With ``local`` every rank of the node calls it
         for the case: each member's TTA combos or windows are striped over
         the ranks, or with ``member_stripe`` the members themselves
         (``engine.py:866-894``). With ``spatial`` each member's forward is
-        Z-sharded over this rank's space row."""
+        Z-sharded over this rank's space row. The ops' own host reads
+        (connected components' convergence test, STAPLE's EM) still wait
+        for the card here."""
         post_kwargs = post_kwargs or {}
-        padded, p_b, p_a = self._pad_case(batch["img"][0], use_tta, self.cfg.eval_bucket,
-                                          z_multiple=self.topo.space)
-        img = torch.from_numpy(padded.astype(np.float16)).to(self.device)[None]
-        seg = batch.get("seg")
+        img = self._put_case(case["shape"], case["wire"])
         target = target_cl = None
-        if seg is not None:
-            target_cl = torch.from_numpy(self._pad_with(seg[0], p_b, p_a)).to(
-                self.device)[None].float()
+        if case["tgt_padded"] is not None:
+            target_cl = self.to_device(case["tgt_padded"])[None].float()
             target = target_cl.permute(0, 4, 1, 2, 3)
-            if "boundary" in self.cfg.criterion and "distance_map" in batch:
-                dm = torch.from_numpy(self._pad_with(batch["distance_map"][0], p_b, p_a))
-                target = (target, dm.to(self.device)[None].permute(0, 4, 1, 2, 3))
+            if case["dm"] is not None:
+                target = (target, self.to_device(case["dm"])[None].permute(0, 4, 1, 2, 3))
         if member_stripe:
             group, rank, size = local
             mine = list(range(rank, len(members), size))
@@ -350,9 +694,9 @@ class Engine:
             per_member = (self.member_probs(model, img, use_tta, sliding, target, local,
                                             spatial)
                           for model in members)
-        probs_sum, loss_sum, posts = None, 0.0, []
+        probs_sum, loss_sum, posts = None, None, []
         for probs, loss in per_member:
-            loss_sum = loss_sum + loss
+            loss_sum = loss if loss_sum is None else loss_sum + loss
             if perform_staple:
                 posts.append(post_process(probs, **post_kwargs))
             else:
@@ -361,11 +705,27 @@ class Engine:
             fused = staple_multichannel(torch.stack(posts), threshold_value=staple_threshold)
         else:
             fused = post_process(probs_sum / len(members), **post_kwargs)
-        # background masking (engine.py:259)
-        brain = (img != 0).any(dim=-1, keepdim=True)
-        return dict(fused=fused * brain.to(fused.dtype), target=target_cl,
-                    loss=(float(loss_sum) / len(members) if seg is not None else None),
-                    p_b=p_b, p_a=p_a)
+        fused, sealed = self._seal(fused, img, self._resolve_wire() == "sparse")
+        entry = dict(case=case, fused=fused, target=target_cl,
+                     sealed=self._copy_out(sealed),
+                     loss=self._copy_out(loss_sum) if target is not None else None,
+                     ready=None)
+        if self.device.type == "cuda":
+            entry["ready"] = torch.cuda.Event()
+            entry["ready"].record(torch.cuda.current_stream(self.device))
+        return entry
+
+    def _collect(self, entry: Dict[str, Any], n_members: int
+                 ) -> Tuple[np.ndarray, Optional[float]]:
+        """(the fused prediction as host numpy, the members' mean loss or
+        None) of an enqueued case, once its copies have landed."""
+        if entry["ready"] is not None:
+            entry["ready"].synchronize()
+        sealed = entry["sealed"].numpy()
+        fused_np = (wire.unpack_bits(sealed, tuple(entry["fused"].shape))
+                    if sealed.dtype == np.uint8 else sealed)
+        loss = entry["loss"]
+        return fused_np, (float(loss) / n_members if loss is not None else None)
 
     @torch.inference_mode()
     def evaluate(self, members: List[nn.Module], loader: Iterable[Dict[str, Any]],
@@ -377,19 +737,23 @@ class Engine:
                  report: Optional[EvaluationReport] = None,
                  step_mode: str = "val") -> Dict[str, AverageMeter]:
         """Ensemble × TTA × sliding-window evaluation over an EvalLoader
-        (engine.py:163-296), case by case. Cases with a seg update the loss
-        and metric meters and ``report``; with ``save_seg`` every case's
-        labels go to ``output_path``. Returns the meters; ``batch_time``
-        holds each case's seconds from the decoded case to its written
-        NIfTI. With several local ranks (``topo``) every rank of the node
-        calls it with the same loader, shares the work
-        (:meth:`_parallel_mode`) and returns the node's meters and rows."""
+        (engine.py:163-296), pipelined as the module docstring says: prep
+        ahead in a thread, up to ``BRATS21_EVAL_PIPELINE`` cases on the
+        card, finish behind in an ordered thread (``BRATS21_EVAL_STAGES=0``:
+        both inline). Cases with a seg update the loss and metric meters
+        and ``report``; with ``save_seg`` every case's labels go to
+        ``output_path``. Returns the meters; ``batch_time`` holds the
+        seconds between collects, one entry a case. An error in any stage
+        raises here, and no stage thread outlives the call. With several
+        local ranks (``topo``) every rank of the node calls it with the
+        same loader, shares the work (:meth:`_parallel_mode`) and returns
+        the node's meters and rows."""
         cfg = self.cfg
         metrics_wanted = self._wanted_metrics()
         meters = self.empty_eval_meters()
         losses, batch_time, data_time = meters["loss"], meters["batch_time"], meters["data_time"]
         metric_meters = {m: meters[m] for m in metrics_wanted}
-        check_eval_bucket(cfg.eval_bucket)
+        bucket = self._eval_bucket()
         sliding = bool(getattr(cfg, "sliding_window_inference", False))
         if save_seg and not output_path:
             raise ValueError("if save_seg, output_path is needed")
@@ -408,42 +772,92 @@ class Engine:
         # a space row's first rank alone counts its cases
         counts = not (case_parallel and spatial) or topo.space_rank == 0
         writes = counts and (not collective or topo.local_rank == 0)
+        depth = max(int(os.environ.get("BRATS21_EVAL_PIPELINE", "2")), 1)
+        use_stages = os.environ.get("BRATS21_EVAL_STAGES", "1") != "0"
+        self._resolve_wire()        # here: its probe touches the card
         progress = ProgressMeter(len(loader), [batch_time, data_time, losses,
                                                *metric_meters.values()],
                                  prefix=f"Epoch Valid: [{epoch}]")
         n_cases = len(loader)
-        t_wait = time.time()
-        for done, batch in enumerate(loader, start=1):
-            t0 = time.time()
-            data_time.update(t0 - t_wait)
+        done = 0
+
+        def prep(batch: Dict[str, Any]) -> Dict[str, Any]:
+            return self.prep_case(batch, use_tta, bucket)
+
+        def finish_case(case: Dict[str, Any], fused_np: np.ndarray, loss: Optional[float],
+                        case_metrics: Optional[Dict[str, np.ndarray]], elapsed: float) -> None:
+            """Meters, report row, progress and the save: host numpy only
+            (the finish stage's thread never touches the card)."""
+            nonlocal done
+            done += 1
+            self.val_step += 1
+            batch = case["batch"]
             pid = batch["patient_id"][0]
-            case = self.eval_case(members, batch, use_tta, sliding,
-                                  perform_staple, staple_threshold, post_kwargs,
-                                  local=local if collective else None,
-                                  member_stripe=member_stripe, spatial=spatial)
-            if case["loss"] is not None and counts:
-                losses.update(case["loss"])
-                # metrics on the padded prediction and target (engine.py:905-914)
-                case_metrics = compute_case_metrics(case["fused"], case["target"],
-                                                    metrics_wanted)
+            if case_metrics is not None:
+                losses.update(loss)
                 for name, meter in metric_meters.items():
                     meter.update(np.asarray(case_metrics[name.title()]).ravel())
                 if report is not None:
                     report.add(pid, case_metrics)
-            if save_seg and writes:
-                case_dir = output_path
-                if getattr(cfg, "create_patient_dir", False):
-                    case_dir = os.path.join(output_path, pid)
-                self._save_segmentation(batch, case["fused"][0].cpu().numpy(), case["p_b"],
-                                        case["p_a"], case_dir, suffix_seg_name)
-            batch_time.update(time.time() - t0)
-            self.val_step += 1
-            logger.info("case %s: %.3fs", pid, batch_time.val)
+            batch_time.update(elapsed)
+            logger.info("case %s: %.3fs", pid, elapsed)
             if done % cfg.log_val_interval == 0 or done == n_cases:
                 progress.display(done)
                 self.tb.log_meters(self.val_step, [losses, *metric_meters.values()],
                                    step_mode=f"{step_mode}_step")
-            t_wait = time.time()
+            if save_seg and writes:
+                case_dir = output_path
+                if getattr(cfg, "create_patient_dir", False):
+                    case_dir = os.path.join(output_path, pid)
+                self._save_segmentation(batch, fused_np[0], case["p_b"], case["p_a"],
+                                        case_dir, suffix_seg_name)
+
+        t_collect = time.time()
+
+        def collect(entry: Dict[str, Any]) -> None:
+            """Land one enqueued case, take its metrics on this thread
+            (engine.py:905-914: on the padded prediction and target), and
+            hand it to the finish stage."""
+            nonlocal t_collect
+            fused_np, loss = self._collect(entry, len(members))
+            case_metrics = None
+            if loss is not None and counts:
+                case_metrics = compute_case_metrics(entry["fused"], entry["target"],
+                                                    metrics_wanted)
+            now = time.time()
+            writer.submit(entry["case"], fused_np, loss, case_metrics, now - t_collect)
+            t_collect = now
+
+        writer = prep_stage = None
+        try:
+            writer = _SinkStage(finish_case) if use_stages else _InlineSink(finish_case)
+            prep_stage = (_IterStage(iter(loader), prep, depth=depth) if use_stages
+                          else _InlineIter(iter(loader), prep))
+            inflight: List[Dict[str, Any]] = []
+            while True:
+                t_wait = time.time()
+                try:
+                    case = next(prep_stage)
+                except StopIteration:
+                    break
+                data_time.update(time.time() - t_wait)
+                inflight.append(self.eval_case(
+                    members, case, use_tta, sliding, perform_staple, staple_threshold,
+                    post_kwargs, local=local if collective else None,
+                    member_stripe=member_stripe, spatial=spatial))
+                while len(inflight) >= depth:
+                    collect(inflight.pop(0))
+            while inflight:
+                collect(inflight.pop(0))
+            writer.join()
+        finally:
+            for stage in (prep_stage, writer):
+                if stage is not None:
+                    stage.close()
+            for stage, name in ((prep_stage, "prep"), (writer, "finish")):
+                if stage is not None and not stage.wait(_STAGE_JOIN_S):
+                    logger.warning("the eval %s stage's thread is still running %.0fs after "
+                                   "it was closed", name, _STAGE_JOIN_S)
         if case_parallel:
             # the node's meters and rows on every local rank (collectives)
             multihost.merge_meters(meters, topo.local_group)

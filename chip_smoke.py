@@ -150,7 +150,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     with its target in fp32, the loss within 1e-3 relative of one
     process's and Dice printed; (d) each rank's launches a forward (14 B1, 21 + 21 split
     B2, none of B2's one-call path), peak memory and seconds beside one
-    process's.
+    process's;
+25. the eval pipeline: a backlog of six synthetic 240×240×155 cases served
+    by the inference CLI with phase 4's member (``--cleaning_areas
+    --replace_value``) (a) case-serial (``BRATS21_EVAL_STAGES=0
+    BRATS21_EVAL_PIPELINE=1``), (b) with the defaults (prep and finish
+    threads, two cases in flight, ``--wire auto``), (c) three in flight on
+    ``--wire sparse``, and (d) with ``--tta`` on two of them under (a) and
+    (b): every decompressed NIfTI byte-equal across (a)-(c) and across (d),
+    labels ⊆ {0, 1, 2, 4}, 14 B1 and 21 B2 launches a case (224 / 336 with
+    TTA); ``--on val`` on phase 12's run under (a) and (b) with equal meters
+    and report rows and 3 B3 launches a case; a ``capture()`` of (b) whose
+    trace holds B1's and B2's kernels, with the card's busy share of its
+    window; a request to the ``BRATS21_PROFILE_PORT`` trace server during
+    (d)(b), made once its first case is on the card, answered with a trace
+    that holds B1's or B2's kernels; the wire each run's engine logged
+    (dense under ``--wire auto``, sparse under ``--wire sparse``); the
+    wall per case of (a)-(c), each case's ``batch_time`` and
+    ``data_time``, and the MB/s behind ``auto``'s choice, beside the
+    card's name and power limit.
 
 Phase 1 also builds the native case loader (``csrc/nifti_native.cc``, g++);
 phase 6 times decode + crop + normalise on its path and on the numpy path
@@ -328,6 +346,13 @@ SPATIAL_LABEL_MARGIN = 5e-4
 SPATIAL_FP32_LABEL_MARGIN = 1e-4
 SPATIAL_FP32_ATOL = 1e-4
 SPATIAL_LOSS_RTOL = 1e-3
+# phase 25: the backlog served through the eval pipeline, and how many of
+# its cases take --tta
+PIPELINE_CASES = 6
+PIPELINE_TTA_CASES = 2
+# the trace server's window, asked for once the TTA run (d)(b) has launched
+# its first kernel
+TRACE_SERVER_MS = 2000
 # EvoNorm's split: the statistics read x once (x − mean, square, two adds an
 # element), the apply reads it again and writes the output (exp, add,
 # reciprocal, three multiplies and an add)
@@ -716,28 +741,44 @@ class CaseProbe:
         self.staple.staple_binary = self.orig_staple
 
 
-def run_cli(argv, dev) -> dict:
-    """The inference CLI with the kernels' counters zeroed just before and
-    read just after, and each case's launches."""
+def run_cli(argv, dev, env=(), probe: bool = True) -> dict:
+    """The inference CLI with ``env`` set for the run and the kernels'
+    counters zeroed just before and read just after; with ``probe`` each
+    case's launches too (:class:`CaseProbe`, which synchronises around
+    every case), without it nothing wrapped, so the eval pipeline overlaps
+    as it does in service."""
+    import os
+
     import torch
     from brats21_tpu_torch.cli.main_inference import main
+    saved = {k: os.environ.get(k) for k, _ in env}
+    os.environ.update(dict(env))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     tf32_default()
     tally = Tally()
-    probe = CaseProbe(tally)
+    case_probe = CaseProbe(tally) if probe else None
     t0 = time.time()
     try:
         meters = main(argv)
         torch.cuda.synchronize()
     finally:
-        probe.close()
+        if case_probe is not None:
+            case_probe.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     wall = time.time() - t0
     check_tf32_off("inference")
     tally.take()
     counts = dict(tally.total)
-    return dict(wall_s=wall, case_s=list(meters["batch_time"].history), launches=counts,
-                cases=probe.cases, loss=float(meters["loss"].avg),
+    return dict(wall_s=wall, case_s=list(meters["batch_time"].history),
+                data_time_s=list(meters["data_time"].history), launches=counts,
+                cases=case_probe.cases if probe else None, loss=float(meters["loss"].avg),
+                meters={k: (m.avg.tolist() if hasattr(m.avg, "tolist") else m.avg)
+                        for k, m in meters.items() if k not in ("batch_time", "data_time")},
                 peak_bytes=torch.cuda.max_memory_allocated(dev))
 
 
@@ -2699,6 +2740,228 @@ def nodes_phase(work: Path, run9_dir: Path, train_data: Path, val_data: Path, da
     return res
 
 
+def decompressed_segs(folder: Path) -> dict:
+    import gzip
+    return {p.name: gzip.decompress(p.read_bytes()) for p in sorted(folder.glob("*.nii.gz"))}
+
+
+def kernel_busy(trace_path: str, wall_s: float) -> dict:
+    """From a Chrome trace of ``torch.profiler``: the kernels' events by
+    name, and the card's busy share of the window (the union of the
+    kernels' intervals over the window's host seconds)."""
+    from collections import Counter
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("cat") == "kernel")
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    names = Counter(e["name"] for e in events if e.get("cat") == "kernel")
+    return dict(kernels=len(spans), busy_s=busy / 1e6, busy_share=busy / 1e6 / wall_s,
+                names=names)
+
+
+def trace_request(port: int, ms: int, results: list, timeout: float = 60.0) -> None:
+    """Ask the trace server on ``port`` for a capture of ``ms`` once the
+    run has launched B1 (its first case is on the card) and the server
+    listens (both polled every 0.1 s up to ``timeout``); the answer, or
+    the error, goes to ``results``."""
+    import urllib.error
+    import urllib.request
+
+    from brats21_tpu_torch.ops.kernels import conv3d
+    t0, last = time.time(), None
+    while conv3d.launches == 0 and time.time() - t0 < timeout:
+        time.sleep(0.1)
+    while time.time() - t0 < timeout:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/capture?ms={ms}",
+                                        timeout=timeout) as r:
+                results.append(r.read().decode())
+            return
+        except urllib.error.HTTPError as e:
+            results.append(AssertionError(f"trace server: {e.code} {e.read().decode()}"))
+            return
+        except OSError as e:        # not listening yet
+            last = e
+            time.sleep(0.1)
+    results.append(AssertionError(f"no trace from 127.0.0.1:{port}: {last}"))
+
+
+def wire_chosen(out: Path) -> tuple:
+    """(the wire, why) that the inference CLI's engine logged in ``out``."""
+    import re
+    found = re.findall(r"wire: (dense|sparse) \(([^)]*)\)",
+                       (out / "logfile_inference.log").read_text())
+    if len(found) != 1:
+        raise AssertionError(f"{out}: {len(found)} wire decisions logged: {found}")
+    return found[0]
+
+
+def pipeline_phase(work: Path, member: tuple, val_run: Path, val_data: Path, card: str,
+                   dev) -> dict:
+    """Phase 25: a backlog of PIPELINE_CASES synthetic 240×240×155 cases
+    served by the inference CLI with phase 4's member under (a) the
+    case-serial path, (b) the defaults, (c) three cases in flight on the
+    sparse wire, and (d) TTA on two of them under (a) and (b); the labels
+    byte-equal across (a)-(c) and across (d), 14 B1 and 21 B2 launches a
+    case; ``--on val`` on phase 12's run under (a) and (b) with equal
+    meters and report rows; a ``capture()`` of (b) holding B1's and B2's
+    kernels, with the card's busy share of its window; the wire each run's
+    engine logged (dense under ``--wire auto``, sparse under ``--wire
+    sparse``); and a request to the ``BRATS21_PROFILE_PORT`` server
+    during (d)(b), made once its first case is on the card, answered with
+    a trace that holds B1's or B2's kernels."""
+    import os
+    import re
+    import socket
+    import threading
+
+    from brats21_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from brats21_tpu_torch.utils.profiling import capture
+    t0 = time.time()
+    backlog, tta_cases = work / "backlog", work / "backlog_tta"
+    with ThreadPoolExecutor(PIPELINE_CASES) as pool:
+        list(pool.map(lambda i: generate_synthetic_dataset(
+            str(backlog), num_cases=1, shape=CASE_SHAPE, seed=SEED + 25, first_case=i,
+            with_seg=False), range(200, 200 + PIPELINE_CASES)))
+    cases = sorted(p.name for p in backlog.iterdir())
+    tta_cases.mkdir()
+    for pid in cases[:PIPELINE_TTA_CASES]:
+        (tta_cases / pid).symlink_to(backlog / pid, target_is_directory=True)
+    log(f"phase 25 data: {len(cases)} cases of {CASE_SHAPE} in {time.time() - t0:.1f}s")
+    config, pth = member
+    base = ["--config", str(config), "--import_pth", str(pth), "--on", "test", "--device", "0",
+            "--cleaning_areas", "--replace_value"]
+    serial = [("BRATS21_EVAL_STAGES", "0"), ("BRATS21_EVAL_PIPELINE", "1")]
+    defaults = [("BRATS21_EVAL_STAGES", "1"), ("BRATS21_EVAL_PIPELINE", "2")]
+    settings = dict(a=(serial, []), b=(defaults, []),
+                    c=([("BRATS21_EVAL_STAGES", "1"), ("BRATS21_EVAL_PIPELINE", "3")],
+                       ["--wire", "sparse"]))
+    runs, segs, wires = {}, {}, {}
+    for name, (env, flags) in settings.items():
+        out = work / f"pipe_{name}"
+        runs[name] = run_cli(base + flags + ["--input", str(backlog), "--output", str(out)],
+                             dev, env, probe=False)
+        segs[name] = decompressed_segs(out / "Inference_segmentations_test")
+        wires[name] = wire_chosen(out)
+    # (d) under (a) and (b); the trace server asked for a window during (d)(b)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    answers = []
+    asker = threading.Thread(target=trace_request, args=(port, TRACE_SERVER_MS, answers),
+                             daemon=True)
+    for name, env in (("d_a", serial),
+                      ("d_b", defaults + [("BRATS21_PROFILE_PORT", str(port))])):
+        out = work / f"pipe_{name}"
+        if name == "d_b":
+            asker.start()
+        runs[name] = run_cli(base + ["--tta", "--input", str(tta_cases), "--output",
+                                     str(out)], dev, env, probe=False)
+        segs[name] = decompressed_segs(out / "Inference_segmentations_test")
+    asker.join(timeout=60)
+    if asker.is_alive():
+        raise AssertionError("phase 25: the trace server did not answer within 60 s")
+    # (b) again under capture(): the trace holds B1's and B2's kernels
+    with capture(str(work / "pipe_trace")) as trace:
+        t_cap = time.time()
+        traced = run_cli(base + ["--input", str(backlog), "--output",
+                                 str(work / "pipe_b_traced")], dev, defaults, probe=False)
+        cap_wall = time.time() - t_cap
+    busy = kernel_busy(trace.path, cap_wall)
+    # --on val on phase 12's run under (a) and (b)
+    val_base = ["--config", str(val_run / "config.yaml"), "--import_pth",
+                str(val_run / "best_model.pth"), "--on", "val", "--train_data_path",
+                str(val_data), "--device", "0"]
+    val, rows = {}, {}
+    for name, env in (("a", serial), ("b", defaults)):
+        out = work / f"pipe_val_{name}"
+        val[name] = run_cli(val_base + ["--output", str(out)], dev, env, probe=False)
+        report, = out.glob("Evaluation_inference_val*.csv")
+        rows[name] = report.read_text().splitlines()
+    # the checks
+    n = len(cases)
+    per_case = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=0)
+    for name, run in runs.items():
+        k = PIPELINE_TTA_CASES if name.startswith("d") else n
+        mult = 16 if name.startswith("d") else 1
+        want = {key: k * mult * v for key, v in per_case.items()}
+        if run["launches"] != want:
+            raise AssertionError(f"phase 25 ({name}): launches {run['launches']}, want {want}")
+        if len(run["case_s"]) != k or len(segs[name]) != k:
+            raise AssertionError(f"phase 25 ({name}): {len(run['case_s'])} batch_time "
+                                 f"entries and {len(segs[name])} NIfTIs for {k} cases")
+    if traced["launches"] != runs["b"]["launches"]:
+        raise AssertionError(f"phase 25 traced (b): launches {traced['launches']}")
+    for x, y in (("a", "b"), ("a", "c"), ("d_a", "d_b")):
+        differ = [f for f in segs[x] if segs[y].get(f) != segs[x][f]]
+        if sorted(segs[x]) != sorted(segs[y]) or differ:
+            raise AssertionError(f"phase 25: the labels of ({x}) and ({y}) differ: {differ}")
+    for f in segs["b"]:
+        check_segmentation(work / "pipe_b" / "Inference_segmentations_test" / f)
+    want_val = {key: v * len(val["a"]["case_s"])
+                for key, v in VAL_CASE_LAUNCHES.items()}
+    for name, run in val.items():
+        if run["launches"] != want_val:
+            raise AssertionError(f"phase 25 val ({name}): launches {run['launches']}, "
+                                 f"want {want_val}")
+    if val["a"]["meters"] != val["b"]["meters"] or rows["a"] != rows["b"]:
+        raise AssertionError(f"phase 25 val: meters {val['a']['meters']} vs "
+                             f"{val['b']['meters']}, rows {rows['a']} vs {rows['b']}")
+    if not any("conv3x3x3" in k for k in busy["names"]) or not any(
+            "evonorm" in k for k in busy["names"]):
+        raise AssertionError(f"phase 25: the captured trace lacks B1 or B2: "
+                             f"{sorted(busy['names'])[:20]}")
+    if [w for w, _ in (wires["a"], wires["b"], wires["c"])] != ["dense", "dense", "sparse"] \
+            or not wires["b"][1].startswith("--wire auto"):
+        raise AssertionError(f"phase 25: the engines chose the wires {wires}")
+    mbps = float(re.search(r"link ([0-9.]+) MB/s", wires["b"][1]).group(1))
+    if len(answers) != 1 or not isinstance(answers[0], str):
+        raise AssertionError(f"phase 25: the trace server answered {answers}")
+    served = kernel_busy(answers[0], TRACE_SERVER_MS / 1e3)
+    served_b1_b2 = {k: v for k, v in served["names"].items()
+                    if "conv3x3x3" in k or "evonorm" in k}
+    if not served_b1_b2:
+        raise AssertionError(f"phase 25: the trace server's window holds no B1 or B2 "
+                             f"kernel: {served['kernels']} kernels, "
+                             f"{sorted(served['names'])[:20]}")
+    res = dict(
+        card=card, cases=n, wires={k: dict(zip(("wire", "why"), w)) for k, w in wires.items()},
+        wire_auto=dict(chosen=wires["b"][0], mbps=mbps),
+        wall_per_case_s={k: runs[k]["wall_s"] / n for k in "abc"},
+        wall_s={k: run["wall_s"] for k, run in runs.items()},
+        batch_time_s={k: run["case_s"] for k, run in runs.items()},
+        data_time_s={k: run["data_time_s"] for k, run in runs.items()},
+        launches={k: run["launches"] for k, run in runs.items()},
+        traced_b=dict(wall_s=cap_wall, kernels=busy["kernels"], busy_s=busy["busy_s"],
+                      busy_share=busy["busy_share"],
+                      b1_b2_kernels=sorted(k for k in busy["names"]
+                                           if "conv3x3x3" in k or "evonorm" in k)),
+        val=dict(meters=val["a"]["meters"], rows=len(rows["a"]) - 1,
+                 launches=val["a"]["launches"],
+                 wall_s={k: v["wall_s"] for k, v in val.items()},
+                 batch_time_s={k: v["case_s"] for k, v in val.items()}),
+        trace_server=dict(path=answers[0], window_ms=TRACE_SERVER_MS,
+                          kernels=served["kernels"], busy_share=served["busy_share"],
+                          b1_b2_events=sum(served_b1_b2.values()),
+                          b1_b2_kernels=sorted(served_b1_b2)),
+        phase_s=time.time() - t0)
+    os.remove(trace.path)
+    log(f"phase 25 pipeline ({card}): wall per case (a) {res['wall_per_case_s']['a']:.3f}s, "
+        f"(b) {res['wall_per_case_s']['b']:.3f}s, (c) {res['wall_per_case_s']['c']:.3f}s; "
+        f"the engine's wire=auto chose {wires['b'][0]} at {mbps:.1f} MB/s; busy share of (b)'s captured window "
+        f"{busy['busy_share']:.4f} ({busy['kernels']} kernels, {busy['busy_s']:.3f} of "
+        f"{cap_wall:.3f}s); the trace server's {TRACE_SERVER_MS} ms window during (d)(b) "
+        f"{served['kernels']} kernels, {sum(served_b1_b2.values())} of them B1 or B2; "
+        f"labels byte-equal (a)-(c) and (d); val meters equal; "
+        f"{json.dumps(res)}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3019,6 +3282,12 @@ def main() -> int:
     spatial_res = spatial_phase(work, shape_to_divisible(sample["img"])[0],
                                 Path(val["run_dir"]), dev)
 
+    # 25. a backlog through the eval pipeline: stages, cases in flight, wires
+    native.take_counts()
+    pipeline = pipeline_phase(work, (work / "config.yaml", work / "best_model.pth"),
+                              Path(val["run_dir"]), val_data, card, dev)
+    take_native(25, cli=True)
+
     sliding_case, = ensemble["sliding"]["cases"]
     kernel_rows = []
     for name, route, source, replaces, tolerance, res, res_train, ms_per in (
@@ -3065,7 +3334,12 @@ def main() -> int:
                        **{f"two_ranks_{k}_per_rank": [r[name] for r in v["launches_per_rank"]]
                           for k, v in serve2.items()},
                        two_ranks_spatial_forward_per_rank=[
-                           r.get(name, 0) for r in spatial_res["launches_per_rank"]]),
+                           r.get(name, 0) for r in spatial_res["launches_per_rank"]],
+                       pipeline_case=pipeline["launches"]["b"][name] // pipeline["cases"],
+                       pipeline_case_tta=pipeline["launches"]["d_b"][name]
+                       // PIPELINE_TTA_CASES,
+                       pipeline_val_case=pipeline["val"]["launches"][name]
+                       // len(pipeline["val"]["batch_time_s"]["a"])),
                    shapes=res["rows"])
         if name == "conv3x3x3":
             row["model1"] = {
@@ -3123,7 +3397,8 @@ def main() -> int:
                    ensemble=ensemble, native_loads=native_counts, docker=docker, watch=watch,
                    zoo_models=zoo, model1=model1, batchnorm=batchnorm, monai_zoo=monai,
                    nnunet=nnunet, unetr=unetr, ddp=ddp, serve_two_ranks=serve2,
-                   two_nodes=nodes, spatial=spatial_res, total_s=time.time() - t_start)
+                   two_nodes=nodes, spatial=spatial_res, pipeline=pipeline,
+                   total_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": kernel_rows}))

@@ -9,8 +9,10 @@ too), the model zoo's conv shapes (the MONAI-backed names' at the levels
 of a 128³ patch too), Model 1, R2Unet and the seven MONAI-backed names, and
 the sliding
 window and a dice_hd validation loss on the card against the CPU, a
-gloo all-reduce of CUDA tensors between two ranks on one card, and B2's
-split statistics and apply entry points against their plain versions. Marked
+gloo all-reduce of CUDA tensors between two ranks on one card, B2's
+split statistics and apply entry points against their plain versions, the
+sparse wire's device round trip, and ``Engine.evaluate`` staged with cases
+in flight against its inline, case-serial run, byte for byte. Marked
 ``cuda``: without a card every test skips. On a machine with one, from the repository root:
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
@@ -590,3 +592,80 @@ def test_gloo_all_reduce_of_cuda_tensors_on_one_card(dev, tmp_path):
                                env={"PYTHONPATH": repo, multihost.TIMEOUT_ENV: "60"},
                                cwd=repo)
     assert outs[0].count(" ok") == 2 and "backend gloo" in outs[0], outs[0]
+
+
+def test_sparse_wire_round_trips_on_card(dev):
+    """The sparse wire's device halves on CUDA tensors: a packed fp16
+    volume unpacked exactly, a binary volume bit-packed as np.packbits
+    does, narrow values decoded exactly."""
+    import numpy as np
+    from brats21_tpu_torch.ops import wire
+    rng = np.random.default_rng(9)
+    vol = rng.standard_normal((40, 36, 24, 4)).astype(np.float16)
+    vol[:10] = 0
+    vol[rng.random(vol.shape[:3]) < 0.3] = 0
+    bits, vals = wire.pack_volume(vol, cap_step=1000)
+    got = wire.unpack_volume_device(torch.from_numpy(bits).to(dev),
+                                    torch.from_numpy(vals).to(dev), vol.shape[:3])
+    assert got.device.type == "cuda"
+    assert got[0].cpu().numpy().tobytes() == vol.tobytes()
+    binary = (rng.random((1, 13, 11, 7, 3)) > 0.5).astype(np.float32)
+    packed = wire.pack_bits_device(torch.from_numpy(binary).to(dev)).cpu().numpy()
+    assert packed.tobytes() == np.packbits(binary.astype(np.uint8).reshape(-1)).tobytes()
+    assert wire.unpack_bits(packed, binary.shape).tobytes() == binary.tobytes()
+    for b in (1, 7, 12, 16):
+        v = rng.integers(0, 1 << b, (501, 4)).astype(np.int32)
+        stream = torch.from_numpy(wire.pack_values_narrow(v, b)).to(dev)
+        dec = wire.unpack_values_narrow_device(stream, 501, 4, b, dtype=torch.int32)
+        assert bool((dec.cpu() == torch.from_numpy(v)).all()), b
+
+
+def test_staged_evaluate_matches_inline_on_card(dev, tmp_path, monkeypatch):
+    """``Engine.evaluate`` on the card (w8 EquiUnetASSPEvo, bf16, three
+    32×32×16 cases with background, dice_hd): the staged run at depth 2
+    (dense wire) and depth 3 (sparse wire) against the inline run at depth
+    1: the same meters exactly and byte-equal NIfTIs, with 14 B1 and 21 B2
+    launches a case and 3 B3 (its loss)."""
+    import gzip
+    import os
+
+    import numpy as np
+    from brats21_tpu_torch.config import TrainConfig
+    from brats21_tpu_torch.learning.engine import Engine
+    from brats21_tpu_torch.learning.losses import make_criterion
+    cfg = dict(model="equiunet_assp_evo", width=8, criterion="dice_hd")
+    _, card = _model_pair(dev, 5)
+    rng = np.random.default_rng(11)
+    batches = []
+    for i in range(3):
+        img = rng.standard_normal((1, 32, 32, 16, 4)).astype(np.float32)
+        img[:, : 4 + 2 * i] = 0.0
+        batches.append({"img": img, "seg": (rng.random((1, 32, 32, 16, 3)) > 0.7).astype(
+            np.float32), "patient_id": [f"c{i}"],
+            "foreground_start_coord": np.array([[0, 0, 0]]),
+            "foreground_end_coord": np.array([[32, 32, 16]]),
+            "original_shape": np.array([[32, 32, 16]]), "affine": np.eye(4)[None]})
+
+    def run(tag, stages, depth, wire):
+        monkeypatch.setenv("BRATS21_EVAL_STAGES", stages)
+        monkeypatch.setenv("BRATS21_EVAL_PIPELINE", depth)
+        monkeypatch.delenv("BRATS21_SPARSE_WIRE", raising=False)
+        c = TrainConfig(**cfg, wire=wire)
+        counts = (conv3d.launches, evonorm.launches, edt.launches)
+        meters = Engine(c, dev, criterion=make_criterion(c)).evaluate(
+            [card], batches, 0, save_seg=True, output_path=str(tmp_path / tag))
+        torch.cuda.synchronize()
+        assert (conv3d.launches - counts[0], evonorm.launches - counts[1],
+                edt.launches - counts[2]) == (42, 63, 9)
+        segs = {f: gzip.decompress((tmp_path / tag / f).read_bytes())
+                for f in sorted(os.listdir(tmp_path / tag))}
+        return {k: np.asarray(m.avg) for k, m in meters.items()
+                if k not in ("batch_time", "data_time")}, segs
+
+    want = run("inline", "0", "1", "dense")
+    assert len(want[1]) == 3
+    for got in (run("staged2", "1", "2", "dense"), run("staged3", "1", "3", "sparse")):
+        assert sorted(got[0]) == sorted(want[0])
+        for k in want[0]:
+            assert np.array_equal(got[0][k], want[0][k]), k
+        assert got[1] == want[1]

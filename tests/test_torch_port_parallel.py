@@ -4,12 +4,14 @@ with real gloo ranks started by ``torch.distributed.run``
 functions and the one-rank port on the same numpy inputs: the nodes'
 striping, the data-parallel train step (Dice with ``batch=True``,
 ``dice_hd``, ``--norm batch``), TTA- and window-parallel probabilities,
-case-parallel and member-striped STAPLE evaluation, the merges across
+case-parallel, TTA-striped (at one and two cases in flight) and
+member-striped STAPLE evaluation, the merges across
 nodes, the train CLI and the fold-parallel CLI on two ranks. One torch
 thread a rank; every rendezvous and collective times out after 60 s and
 every launch is bounded, so nothing can hang the run."""
 
 import glob
+import gzip
 import os
 from pathlib import Path
 
@@ -128,7 +130,11 @@ EVAL_MODES = {"case_parallel": (1, (3, 4, 5), {}, {}, (True, False)),
               "staple": (2, (3,), {"perform_staple": True}, {}, (False, True)),
               "staple_serial": (2, (3,), {"perform_staple": True},
                                 {"BRATS21_STAPLE_SERIAL": "1"}, (False, False)),
-              "tta": (1, (4,), {"use_tta": True}, {}, (False, False))}
+              "tta": (1, (4,), {"use_tta": True}, {}, (False, False)),
+              "tta_depth1": (1, (4, 5), {"use_tta": True}, {"BRATS21_EVAL_PIPELINE": "1"},
+                             (False, False)),
+              "tta_depth2": (1, (4, 5), {"use_tta": True}, {"BRATS21_EVAL_PIPELINE": "2"},
+                             (False, False))}
 
 
 @pytest.fixture(scope="module")
@@ -296,8 +302,9 @@ class _Loader:
 def test_engine_parallel_modes_match_jax_serial(parallel_run, mode, tmp_path):
     """The engine on 2 ranks — cases striped (three cases, no TTA), a
     two-member STAPLE ensemble with its members striped, the same with
-    ``BRATS21_STAPLE_SERIAL`` set (each rank runs both members), and one
-    case's TTA combos striped — against the JAX package's serial engine on one
+    ``BRATS21_STAPLE_SERIAL`` set (each rank runs both members), and the
+    TTA combos striped (one case, and two cases at one and at two in
+    flight) — against the JAX package's serial engine on one
     device (its member-striped STAPLE is not called): the loss within 1e-4
     relative, the metrics and report rows within 1e-5 (1e-4 under TTA: the
     ranks' partial sums reorder the 16-combo mean, which may move a voxel
@@ -337,6 +344,34 @@ def test_engine_parallel_modes_match_jax_serial(parallel_run, mode, tmp_path):
         want_seg = read_nifti(str(tmp_path / f"{pid}.nii.gz")).data
         assert got_seg.shape == want_seg.shape == (36, 18, 9)
         assert (got_seg == want_seg).mean() >= 0.999
+
+
+def test_engine_tta_striped_depth_invariant(parallel_run):
+    """Two cases' TTA combos striped over 2 ranks, with two cases in flight
+    (case 2 enqueued, its combos' collectives issued, before case 1 is
+    collected) and with one: the same meters, report rows and NIfTI bytes
+    on both ranks, each case written once, by local rank 0."""
+    out = parallel_run["out"] / "engine"
+    segs = {}
+    for mode in ("tta_depth1", "tta_depth2"):
+        segs[mode] = {f.name: gzip.decompress(f.read_bytes())
+                      for f in sorted((out / mode).glob("*.nii.gz"))}
+        for r in parallel_run["ranks"]:
+            assert r["engine_eval"]["saved"][mode] == (
+                ["case4", "case5"] if r is parallel_run["ranks"][0] else [])
+    assert sorted(segs["tta_depth1"]) == ["case4.nii.gz", "case5.nii.gz"]
+    assert segs["tta_depth1"] == segs["tta_depth2"]
+    for r in parallel_run["ranks"]:
+        one, two = r["engine_eval"]["tta_depth1"], r["engine_eval"]["tta_depth2"]
+        assert list(one["rows"]) == list(two["rows"]) == ["case4", "case5"]
+        for pid, row in one["rows"].items():
+            assert list(two["rows"][pid]) == list(row)
+            np.testing.assert_array_equal(list(two["rows"][pid].values()), list(row.values()),
+                                          err_msg=pid)
+        assert sorted(one["meters"]) == sorted(two["meters"])
+        for k, (avg, count) in one["meters"].items():
+            np.testing.assert_array_equal(two["meters"][k][0], avg, err_msg=k)
+            assert two["meters"][k][1] == count == 2
 
 
 # ------------------------------------------------------- (e) across nodes
