@@ -56,11 +56,12 @@ cases in flight too.
 On a data×space topology (``Topology.space > 1``; engine.py:410-429,
 507-566, 852-860) plain evaluation — no TTA, sliding windows or STAPLE —
 stripes the cases over the data axis and Z-shards each case's volume over
-its space row (``parallel/distributed.py:spatial_sharded_forward``): every
+its space row (``parallel/distributed.py:spatial_sharded_forward``, every
+``--model`` name, its slabs at the model's downsampling factor): every
 rank of the row holds the replicated heads, the loss is taken on them and
 one rank of the row counts and writes the case. ``_pad_case`` pads Z to a
 multiple of the space size on the host, so the sharded forward sees the
-volume the serial path would. TTA, sliding windows and STAPLE ignore the
+volume the serial path would (nnunet still needs ``--eval_bucket 32``). TTA, sliding windows and STAPLE ignore the
 space axis there, as the JAX engine does.
 """
 

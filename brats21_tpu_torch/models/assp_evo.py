@@ -220,7 +220,11 @@ class EquiUnetASSPEvo(nn.Module):
     supervision on (``([refined, logits], deeps)`` with the refinement);
     ``forward(x, with_deep=False)`` skips the deep heads
     for callers that read the main head only (XLA drops them under ``jit``
-    on the TPU)."""
+    on the TPU). Z-sharded, the slabs are cut at multiples of 8 (16 with the
+    refinement, whose Z need only be a multiple of 8: the last slab then
+    holds a partial block)."""
+
+    spatial_factor = 8
 
     def __init__(self, features: Sequence[int], num_classes: int = 3,
                  deep_supervision: bool = False, dropout: float = 0.0,
@@ -250,6 +254,8 @@ class EquiUnetASSPEvo(nn.Module):
         # whatever the CLI's --act and --norm
         self.refunet = RefUnet(num_classes, f[0], "relu", "group", dropout) \
             if refinement else None
+        if refinement:
+            self.spatial_factor, self.spatial_multiple = RefUnet.spatial_factor, 8
 
     def forward(self, x: torch.Tensor, with_deep: bool = True) -> ModelOutput:
         down1 = self.encoder1(x)

@@ -27,8 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .extra import Convolution, norm_or_identity
-from .layers import ConvTranspose3d
-from .unet_family import upsample_nearest
+from .layers import ConvTranspose3d, upsample_nearest
 
 
 class UnetBasicBlock(nn.Module):
@@ -99,7 +98,10 @@ class DynUNet(nn.Module):
     """The reference's WrapperDynUNet around MONAI DynUNet
     (``dynunet.py:52-93``). ``forward(x)`` returns ``(main, [deep1, deep2,
     deep3])``, the deep heads nearest-upsampled ×2, ×4, ×8;
-    ``forward(x, with_deep=False)`` returns ``(main, [])``."""
+    ``forward(x, with_deep=False)`` returns ``(main, [])``. Z-sharded, the
+    slabs are cut at multiples of 32, its five stride-2 levels."""
+
+    spatial_factor = 32
 
     def __init__(self, num_classes: int = 3, norm: Optional[str] = "instance",
                  deep_supr_num: int = 3, levels: int = 6, in_channels: int = 4):

@@ -153,7 +153,9 @@ class RefUnet(nn.Module):
     """Refinement U-Net adding a residual correction to the logits
     (equiunet2020.py:252-309): four ceil-mode max-pool encoders, decoders
     on trilinear resizes to each skip's exact shape (``_up_match``,
-    ``equiunet.py:179``)."""
+    ``equiunet.py:179``). Its four pools downsample Z by 16."""
+
+    spatial_factor = 16
 
     def __init__(self, in_ch: int, inc_ch: int, act: str = "relu",
                  norm: Optional[str] = "group", dropout: float = 0.0):
@@ -206,7 +208,14 @@ class _Unet2020(nn.Module):
     ``forward(x)`` returns ``(logits, [4 deep heads])`` with deep
     supervision on (``([refined, logits], deeps)`` with the refinement);
     ``forward(x, with_deep=False)`` skips the deep heads for callers that
-    read the main head only."""
+    read the main head only.
+
+    Z-sharded (``parallel/spatial.py``), the slabs are cut at multiples of
+    ``spatial_factor``: 8 for the three pools, 16 with the RefUnet's four
+    ceil-mode pools, whose Z need only be a multiple of 8
+    (``spatial_multiple``): the last slab then holds a partial block."""
+
+    spatial_factor = 8
 
     def _heads(self, f: List[int], out_width: int, num_classes: int,
                deep_supervision: bool) -> None:
@@ -283,6 +292,7 @@ class EquiUnet(_Unet2020):
         self._heads(f, f[0], num_classes, deep_supervision)
         if refinement:
             self.refunet = RefUnet(num_classes, f[0], act, norm, dropout)
+            self.spatial_factor, self.spatial_multiple = RefUnet.spatial_factor, 8
 
 
 class AttEquiUnet(_Unet2020):

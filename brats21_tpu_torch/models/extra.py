@@ -24,12 +24,14 @@ C8).
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial
 from .layers import (Act, BatchNorm, Conv3d, ConvTranspose3d, Dropout, GroupNorm,
                      InstanceNorm, Upsample, get_act, get_norm_layer,
                      kaiming_normal_fan_out, max_pool3d, to_kernel_layout)
@@ -145,6 +147,9 @@ class BasicUNet(nn.Module):
     ``extra.py:48-88``): ``features`` = [f0..f4, f_final]; ``upcat_1``
     keeps f1 channels out of its deconv (MONAI's ``halves=False``)."""
 
+    #: Z-sharded, the slabs are cut at multiples of its four pools' 16
+    spatial_factor = 16
+
     def __init__(self, features: Sequence[int], num_classes: int = 3,
                  act: str = "leakyrelu", norm: Optional[str] = "instance",
                  dropout: float = 0.0, in_channels: int = 4):
@@ -216,6 +221,9 @@ class SegResNet(nn.Module):
     ``extra.py:114-149``). The JAX package's ``norm`` is unused: every norm
     is GroupNorm(8)."""
 
+    #: Z-sharded, the slabs are cut at multiples of its three strided convs' 8
+    spatial_factor = 8
+
     def __init__(self, init_filters: int = 8, num_classes: int = 3, dropout: float = 0.0,
                  norm: str = "group", blocks_down: Sequence[int] = (1, 2, 2, 4),
                  blocks_up: Sequence[int] = (1, 1, 1), in_channels: int = 4):
@@ -273,6 +281,8 @@ class SegResNetVAE(SegResNet):
     #: its outputs carry ``vae_loss``, a leaf without the batch axis: the
     #: engine's case-parallel evaluation takes the serial path for it
     unbatched_outputs = True
+    #: Z-sharded, the slabs are cut at multiples of the VAE branch's 16
+    spatial_factor = 16
 
     def __init__(self, input_image_size: Sequence[int], init_filters: int = 8,
                  num_classes: int = 3, dropout: float = 0.0, vae_nz: int = 256,
@@ -307,11 +317,15 @@ class SegResNetVAE(SegResNet):
             state_dict.setdefault(prefix + "vae_" + key[len(prefix):], state_dict[key])
 
     def _check_size(self, x: torch.Tensor) -> None:
-        if tuple(x.shape[2:]) != self.input_image_size:
+        size = tuple(x.shape[2:])
+        slab = spatial.active()
+        if slab is not None:                   # the whole volume's Z
+            size = (*size[:2], sum(slab.level(x)[1]))
+        if size != self.input_image_size:
             raise ValueError(
                 f"segresnetvae takes inputs of its input_image_size "
                 f"{self.input_image_size} (the VAE's Linear layers fix it), got "
-                f"{tuple(x.shape[2:])}: serve it with --sliding_window_inference "
+                f"{size}: serve it with --sliding_window_inference "
                 f"--sliding_window_size {' '.join(map(str, self.input_image_size))}")
 
     def forward(self, x: torch.Tensor, with_deep: bool = True):
@@ -323,8 +337,17 @@ class SegResNetVAE(SegResNet):
         return seg, {"vae_loss": self.vae_loss(x, bottom)}
 
     def vae_loss(self, xin: torch.Tensor, bottom: torch.Tensor) -> torch.Tensor:
+        """The VAE term. On a slab the latent is gathered to every rank,
+        whose Linear layers read all of it; each rank decodes its own planes
+        of the result, and the squared errors' sums are all-reduced, so every
+        rank holds the whole volume's term."""
         v = self.vae_down(bottom)
-        flat = to_kernel_layout(v).reshape(v.shape[0], -1).float()
+        slab = spatial.active()
+        vk = to_kernel_layout(v)
+        if slab is not None:
+            start, sizes = slab.level(v)
+            vk = spatial.gather_planes(vk, slab.group, 3, sizes)
+        flat = vk.reshape(v.shape[0], -1).float()
         mu = self.vae_fc1(flat)
         sigma = F.softplus(self.vae_fc2(flat))
         if self.training and not self.deterministic:
@@ -334,13 +357,19 @@ class SegResNetVAE(SegResNet):
             z = mu
         d = F.relu(self.vae_fc3(z))
         b, c = v.shape[:2]
-        d = d.reshape(b, *v.shape[2:], c).permute(0, 4, 1, 2, 3)
+        d = d.reshape(b, *vk.shape[1:4], c).permute(0, 4, 1, 2, 3)
+        if slab is not None:
+            d = d.narrow(4, start, sizes[slab.rank])
         d = self.vae_fc_up_sample(d)
         for up, layer in zip(self.vae_up_samples, self.vae_up_layers):
             d = layer(up(d))
         recon = self.vae_conv_final(d)
-        return (torch.mean((recon - xin) ** 2)
-                + 0.5 * torch.mean(mu ** 2 + sigma ** 2 - torch.log(sigma ** 2 + 1e-8) - 1)
+        if slab is None:
+            mse = torch.mean((recon - xin) ** 2)
+        else:
+            total = spatial.all_reduce(((recon - xin) ** 2).double().sum(), slab.group)
+            mse = (total / (math.prod(recon.shape[:4]) * sum(slab.level(recon)[1]))).float()
+        return (mse + 0.5 * torch.mean(mu ** 2 + sigma ** 2 - torch.log(sigma ** 2 + 1e-8) - 1)
                 ).float()
 
 
@@ -397,6 +426,9 @@ class HighResNet(nn.Module):
     three blocks at dilations 1/2/4, widths 16/32/64; ``extra.py:276-310``),
     one ``blocks`` Sequential: ConvNormActi, 9 HighResBlocks,
     ConvNormActi(80, 1³, channel-wise dropout) and a bare 1³ conv."""
+
+    #: no downsampling: Z-sharded, the slabs are cut at any plane
+    spatial_factor = 1
 
     def __init__(self, num_classes: int = 3, act: str = "relu", norm: Optional[str] = "batch",
                  dropout: float = 0.0, in_channels: int = 4):
@@ -503,6 +535,9 @@ class VNet(nn.Module):
     (so everything after the first runs in fp32, ROADMAP C6), dropout on the
     two deepest down and up transitions, and the fixed 0.5 skip dropout.
     No 3³ conv: the conv kernel is not on its path."""
+
+    #: Z-sharded, the slabs are cut at multiples of its four down-convs' 16
+    spatial_factor = 16
 
     def __init__(self, num_classes: int = 3, act: str = "elu", dropout: float = 0.0,
                  in_channels: int = 4):

@@ -14,9 +14,10 @@ fp32. Parameter and buffer names are torch's (``weight``/``bias``,
 plain ``load_state_dict``.
 
 Under ``parallel/spatial.py``'s slab context (a volume sharded on W over a
-space group) the convolutions, GroupNorm, InstanceNorm, the pools and the
-resizes take their sharded forms; BatchNorm in eval normalises by its
-running statistics and stays local.
+space group) the convolutions (weight-standardised and transposed ones
+too), GroupNorm, InstanceNorm, BCNorm, the pools and the resizes take
+their sharded forms; BatchNorm in eval normalises by its running
+statistics and stays local.
 """
 
 from __future__ import annotations
@@ -270,9 +271,21 @@ class BCNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.bn(x.float()).contiguous()          # NCDHW element order
         n, g = out.shape[0], self.groups
-        flat = out.reshape(1, n * g, -1)
-        mean = flat.mean(dim=-1, keepdim=True)
-        var = (flat - mean).square().mean(dim=-1, keepdim=True)
+        slab = spatial.active()
+        if slab is None:
+            flat = out.reshape(1, n * g, -1)
+            mean = flat.mean(dim=-1, keepdim=True)
+            var = (flat - mean).square().mean(dim=-1, keepdim=True)
+        else:
+            # a group is a run of whole (C, D, H) rows, each spanning W,
+            # where C·D·H divides into the groups: a slab holds its share
+            # of every group
+            if math.prod(out.shape[1:4]) % g:
+                raise ValueError(f"BCNorm on a slab of {tuple(out.shape)}: C·D·H does not "
+                                 f"divide into its {g} groups")
+            flat = out.reshape(n, g, -1)
+            cnt, mean, m2 = spatial.group_moments(flat[:, None], slab).unbind(-1)
+            mean, var = mean.float()[..., None], (m2 / cnt).float()[..., None]
         flat = (flat - mean) * torch.rsqrt(var + self.eps)
         flat = flat.reshape(n, g, -1) * self.weight + self.bias
         y = flat.reshape(out.shape).to(x.dtype)
@@ -362,21 +375,26 @@ class Conv3d(nn.Conv3d):
             y = conv3x3x3(spatial.halo(x, 1, 1, slab), w.permute(2, 3, 4, 1, 0).contiguous(),
                           self._kernel_bias(x))
             return from_kernel_layout(y[:, :, :, 1:-1])
-        start, sizes = slab.level(x)
-        lo, hi = spatial.conv_reach(self.kernel_size[2], self.dilation[2], self.padding[2],
-                                    self.stride[2], start, x.shape[4], sum(sizes))
-        ext = from_kernel_layout(spatial.halo(x, lo, max(hi, 0), slab))
-        if hi < 0:
-            ext = ext.narrow(4, 0, ext.shape[4] + hi)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return sharded_conv(x, slab, lambda v, pad: F.conv3d(
+            v, w, bias, stride=self.stride, padding=pad, dilation=self.dilation), self)
 
-        def conv(v):
-            return F.conv3d(v, w, None if self.bias is None else self.bias.to(x.dtype),
-                            stride=self.stride, padding=(*self.padding[:2], 0),
-                            dilation=self.dilation)
 
-        if x.shape[4] == 0:
-            return spatial.on_empty(conv, x, self.dilation[2] * (self.kernel_size[2] - 1) + 1)
-        return conv(ext)
+def sharded_conv(x: torch.Tensor, slab: "spatial.Slab", conv: Callable, layer: nn.Conv3d
+                 ) -> torch.Tensor:
+    """``conv(v, padding)`` (``layer``'s geometry) of a slab: the planes its
+    reach needs from the slabs beside it, then VALID on the sharded axis."""
+    k, dil, pad, stride = (layer.kernel_size[2], layer.dilation[2], layer.padding[2],
+                           layer.stride[2])
+    start, sizes = slab.level(x)
+    lo, hi = spatial.conv_reach(k, dil, pad, stride, start, x.shape[4], sum(sizes))
+    ext = from_kernel_layout(spatial.halo(x, lo, max(hi, 0), slab))
+    if hi < 0:
+        ext = ext.narrow(4, 0, ext.shape[4] + hi)
+    padding = (*layer.padding[:2], 0)
+    if x.shape[4] == 0:
+        return spatial.on_empty(lambda v: conv(v, padding), x, dil * (k - 1) + 1)
+    return conv(ext, padding)
 
 
 class ConvTranspose3d(nn.ConvTranspose3d):
@@ -393,9 +411,22 @@ class ConvTranspose3d(nn.ConvTranspose3d):
                          bias=use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose3d(
-            x, self.weight.to(x.dtype), None if self.bias is None else self.bias.to(x.dtype),
-            stride=self.stride)
+        def up(v):
+            return F.conv_transpose3d(
+                v, self.weight.to(x.dtype),
+                None if self.bias is None else self.bias.to(x.dtype), stride=self.stride)
+
+        slab = spatial.active()
+        if slab is not None:
+            # kernel = stride: each output plane reads the one input plane
+            # under it, so an aligned slab's outputs are its own
+            if self.kernel_size[2] != self.stride[2] or self.padding[2] or \
+                    self.output_padding[2]:
+                raise ValueError(f"a transposed conv of kernel {self.kernel_size[2]}, stride "
+                                 f"{self.stride[2]} on a slab: only kernel = stride is local")
+            if x.shape[4] == 0:
+                return spatial.on_empty(up, x, 1)
+        return up(x)
 
 
 class Linear(nn.Linear):
@@ -428,13 +459,17 @@ class WSConv3d(nn.Conv3d):
         std = w.reshape(w.shape[0], -1).std(dim=1) + 1e-5
         return w / std.reshape(-1, 1, 1, 1, 1)
 
-    def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def _conv(self, x: torch.Tensor, w: torch.Tensor, padding) -> torch.Tensor:
         y = F.conv3d(x.float(), w.to(x.dtype).float(), None, stride=self.stride,
-                     padding=self.padding, dilation=self.dilation).to(x.dtype)
+                     padding=padding, dilation=self.dilation).to(x.dtype)
         return y if self.bias is None else y + self.bias.to(y.dtype).reshape(1, -1, 1, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv(x, self.standardized())
+        w = self.standardized()
+        slab = spatial.active()
+        if slab is not None:
+            return sharded_conv(x, slab, lambda v, pad: self._conv(v, w, pad), self)
+        return self._conv(x, w, self.padding)
 
 
 class ConvAWS3d(WSConv3d):
@@ -468,7 +503,7 @@ def max_pool3d(x: torch.Tensor, window: int = 2, stride: Optional[int] = None,
     local on an aligned slab."""
     slab = spatial.active()
     if slab is not None:
-        spatial.check_pool(x, window, stride or window, slab)
+        spatial.check_pool(x, window, stride or window, slab, ceil_mode)
         if x.shape[4] == 0:
             return spatial.on_empty(lambda v: F.max_pool3d(v, window, stride or window), x,
                                     window)
@@ -476,17 +511,19 @@ def max_pool3d(x: torch.Tensor, window: int = 2, stride: Optional[int] = None,
 
 
 def avg_pool3d(x: torch.Tensor, window: int = 2, stride: Optional[int] = None) -> torch.Tensor:
+    def pool(v):
+        if v.device.type == "cpu" and v.dtype == torch.bfloat16:
+            # PyTorch's CPU avg_pool3d has no bf16 kernel: pool in fp32, as
+            # the CUDA kernel accumulates anyway, and round once
+            return F.avg_pool3d(v.float(), window, stride or window).to(v.dtype)
+        return F.avg_pool3d(v, window, stride or window)
+
     slab = spatial.active()
     if slab is not None:
         spatial.check_pool(x, window, stride or window, slab)
         if x.shape[4] == 0:
-            return spatial.on_empty(lambda v: avg_pool3d(v.float(), window, stride), x,
-                                    window).to(x.dtype)
-    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
-        # PyTorch's CPU avg_pool3d has no bf16 kernel: pool in fp32, as the
-        # CUDA kernel accumulates anyway, and round once
-        return F.avg_pool3d(x.float(), window, stride or window).to(x.dtype)
-    return F.avg_pool3d(x, window, stride or window)
+            return spatial.on_empty(pool, x, window)
+    return pool(x)
 
 
 def max_avg_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
@@ -522,20 +559,19 @@ def resize_trilinear(x: torch.Tensor, out_shape: Sequence[int],
     ``align_corners=False`` is torch's half-pixel rule with the source
     clamped at 0, as the JAX package's interpolation matrices have it).
 
-    On a slab the sharded axis must grow by an integer factor: it is
-    interpolated from global coordinates (``spatial.resize_sharded_axis``),
-    then the other two axes, in fp32, rounded once to x's dtype."""
+    On a slab ``out_shape`` is the slab's at the output's level (a skip's
+    exact shape, or ×2): the sharded axis is interpolated from global
+    coordinates to that level's global size
+    (``spatial.resize_sharded_axis``), then the other two axes, in fp32,
+    rounded once to x's dtype."""
     slab = spatial.active()
     if slab is None:
         return F.interpolate(x, size=tuple(out_shape), mode="trilinear",
                              align_corners=align_corners)
-    # an empty slab scales its W as its D (the covered models resize alike)
-    scale, rest = (divmod(out_shape[2], x.shape[4]) if x.shape[4] else
-                   divmod(out_shape[0], x.shape[2]))
-    if rest or scale < 1:
-        raise ValueError(f"a resize of a slab of {x.shape[4]} planes to {out_shape[2]}: the "
-                         "sharded axis takes integer factors only")
-    y = spatial.resize_sharded_axis(x, scale, align_corners, slab) if scale > 1 else x.float()
+    _, sizes = slab.level(x)
+    _, out_sizes = slab.sizes_at(out_shape[2], out_shape[0])
+    y = (x.float() if sum(out_sizes) == sum(sizes) else
+         spatial.resize_sharded_axis(x, out_sizes, align_corners, slab))
     if y.shape[4] == 0:
         return y.new_zeros((*y.shape[:2], out_shape[0], out_shape[1], 0)).to(x.dtype)
     return F.interpolate(y, size=(out_shape[0], out_shape[1], y.shape[4]), mode="trilinear",
@@ -563,6 +599,26 @@ class Upsample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return upsample(x, self.scale_factor, self.align_corners)
+
+
+def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """Nearest ×scale (torch ``nn.Upsample``'s default mode): output plane o
+    reads input plane ⌊o/scale⌋, so an aligned slab's outputs are its own."""
+    if x.shape[4] == 0 and spatial.active() is not None:
+        return x.new_zeros((*x.shape[:2], x.shape[2] * scale, x.shape[3] * scale, 0))
+    return F.interpolate(x, scale_factor=scale, mode="nearest")
+
+
+class UpsampleNearest(nn.Module):
+    """:func:`upsample_nearest` as a parameter-free module (the unet
+    family's ``UpConv.up.0``)."""
+
+    def __init__(self, scale_factor: int = 2):
+        super().__init__()
+        self.scale_factor = scale_factor
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return upsample_nearest(x, self.scale_factor)
 
 
 class Dropout(nn.Module):

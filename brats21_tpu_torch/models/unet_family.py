@@ -18,15 +18,10 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from .layers import (Act, BatchNorm, Conv3d, get_norm_layer, kaiming_normal_fan_out,
-                     max_pool3d)
-
-
-def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
-    return F.interpolate(x, scale_factor=scale, mode="nearest")
+from .layers import (Act, BatchNorm, Conv3d, UpsampleNearest, get_norm_layer,
+                     kaiming_normal_fan_out, max_pool3d, upsample_nearest)
 
 
 def _conv(cin: int, cout: int, k: int = 3) -> Conv3d:
@@ -57,7 +52,7 @@ class UpConv(nn.Module):
     def __init__(self, ch_in: int, ch_out: int, norm: Optional[str] = "group",
                  act: str = "relu"):
         super().__init__()
-        self.up = nn.Sequential(nn.Upsample(scale_factor=2),
+        self.up = nn.Sequential(UpsampleNearest(2),
                                 *_conv_norm_act(ch_in, ch_out, norm, act))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -128,6 +123,8 @@ class UnetFamily(nn.Module):
 
     attention = False
     recurrent = False
+    #: Z-sharded, the slabs are cut at multiples of its three pools' 8
+    spatial_factor = 8
 
     def __init__(self, features: Sequence[int], num_classes: int = 3,
                  norm: Optional[str] = "group", act: str = "relu",

@@ -21,17 +21,25 @@ decoder's stride-1 3³ convs (10 a forward: 16, 32, 64 and 128 channels out)
 run the hand-written conv kernel. The position embedding fixes the input
 size to ``img_size`` (the train patch): serve it with sliding windows of
 that size.
+
+Z-sharded (``parallel/spatial.py``), a slab aligned at the patch holds the
+tokens whose Z patch falls in it, a strided subset of the token order with
+their rows of the position embedding; the attention computes the queries
+of its own tokens against the keys and values of every token, gathered
+over the space group in the token order. LayerNorm and the MLP are per
+token, and the decoders' grids are per slab.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial
 from .dynunet import UnetOutBlock, _TranspConv
 from .extra import Convolution
 from .layers import Linear, get_norm_layer
@@ -54,12 +62,18 @@ class MHSA(nn.Module):
         self.out_proj = Linear(hidden, hidden)
         self.qkv = Linear(hidden, 3 * hidden, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                gather: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """``gather`` (on a slab) maps this rank's ``[B, heads, n, d]``
+        keys or values to every token's, in the token order."""
         b, n, c = x.shape
         h = self.heads
         d = c // h
         qkv = self.qkv(x).reshape(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]
+        if gather is not None:
+            k, v = gather(k), gather(v)
         att = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
         att = torch.softmax(att, dim=-1).to(x.dtype)
         out = torch.matmul(att, v).permute(0, 2, 1, 3).reshape(b, n, c)
@@ -90,8 +104,10 @@ class TransformerBlock(nn.Module):
         self.attn = MHSA(hidden, heads)
         self.norm2 = nn.LayerNorm(hidden, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(layer_norm_fp32(self.norm1, x))
+    def forward(self, x: torch.Tensor,
+                gather: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> torch.Tensor:
+        x = x + self.attn(layer_norm_fp32(self.norm1, x), gather)
         return x + self.mlp(layer_norm_fp32(self.norm2, x))
 
 
@@ -108,13 +124,23 @@ class PatchEmbedding(nn.Module):
         self.position_embeddings = nn.Parameter(torch.zeros(1, n_tokens, hidden))
         nn.init.normal_(self.position_embeddings, std=0.02)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, z_patches: Optional[Tuple[int, int]] = None
+                ) -> torch.Tensor:
+        """``z_patches`` (on a slab): (this slab's first Z patch, the
+        volume's Z patches), which pick the slab's rows of the position
+        embedding."""
         b, c = x.shape[:2]
         p = self.patch
         g = [s // p for s in x.shape[2:]]
         t = x.reshape(b, c, g[0], p, g[1], p, g[2], p).permute(0, 2, 4, 6, 3, 5, 7, 1)
         tokens = self.patch_embeddings(t.reshape(b, g[0] * g[1] * g[2], p ** 3 * c))
-        return tokens + self.position_embeddings.to(tokens.dtype)
+        pos = self.position_embeddings
+        if z_patches is not None:
+            first, total = z_patches
+            rows = (torch.arange(g[0] * g[1], device=pos.device)[:, None] * total + first
+                    + torch.arange(g[2], device=pos.device)).reshape(-1)
+            pos = pos.index_select(1, rows)
+        return tokens + pos.to(tokens.dtype)
 
 
 class ViT(nn.Module):
@@ -197,6 +223,8 @@ class UNETR(nn.Module):
         super().__init__()
         self.img_size = tuple(int(s) for s in img_size)
         self.patch, self.hidden = patch, hidden_size
+        #: Z-sharded, the slabs are cut at multiples of the patch
+        self.spatial_factor = patch
         fs = feature_size
         self.vit = ViT(in_channels, self.img_size, patch, hidden_size, mlp_dim, num_layers,
                        num_heads)
@@ -216,18 +244,28 @@ class UNETR(nn.Module):
 
     def forward(self, x: torch.Tensor, with_deep: bool = True) -> torch.Tensor:
         p = self.patch
-        if any(s % p for s in x.shape[2:]) or math.prod(
-                s // p for s in x.shape[2:]) != math.prod(s // p for s in self.img_size):
+        size = tuple(x.shape[2:])
+        slab = spatial.active()
+        if slab is not None:                   # the whole volume's Z
+            start, sizes = slab.level(x)
+            size = (*size[:2], sum(sizes))
+        if any(s % p for s in size) or math.prod(
+                s // p for s in size) != math.prod(s // p for s in self.img_size):
             raise ValueError(f"unet_tr takes inputs of its img_size {self.img_size} (its "
-                             f"position embedding fixes the tokens), got {tuple(x.shape[2:])}: "
+                             f"position embedding fixes the tokens), got {size}: "
                              f"serve it with --sliding_window_inference --sliding_window_size "
                              f"{' '.join(map(str, self.img_size))}")
         grid = tuple(s // p for s in x.shape[2:])
         vit = self.vit
-        tokens = vit.patch_embedding(x)
+        gather = None
+        if slab is None:
+            tokens = vit.patch_embedding(x)
+        else:
+            tokens = vit.patch_embedding(x, (start // p, size[2] // p))
+            gather = self._token_gather(slab, grid, [s // p for s in sizes])
         taps = []
         for i, blk in enumerate(vit.blocks):
-            tokens = blk(tokens)
+            tokens = blk(tokens, gather)
             if i in (3, 6, 9):
                 taps.append(tokens)
         tokens = layer_norm_fp32(vit.norm, tokens)
@@ -240,3 +278,14 @@ class UNETR(nn.Module):
         d = self.decoder3(d, enc2)
         d = self.decoder2(d, enc1)
         return self.out(d)
+
+    @staticmethod
+    def _token_gather(slab: "spatial.Slab", grid: Tuple[int, ...],
+                      z_patches: Sequence[int]) -> Callable[[torch.Tensor], torch.Tensor]:
+        """Every rank's ``[B, heads, tokens, d]`` (its ``z_patches`` of each
+        (g0, g1) row) gathered over the space group into the token order."""
+        def gather(t: torch.Tensor) -> torch.Tensor:
+            b, h, _, d = t.shape
+            rows = t.reshape(b, h, grid[0], grid[1], grid[2], d)
+            return spatial.gather_planes(rows, slab.group, 4, z_patches).reshape(b, h, -1, d)
+        return gather

@@ -131,17 +131,23 @@ def spatial_sharded_forward(model: torch.nn.Module, x: torch.Tensor, topo: Topol
     over ``topo``'s space group (JAX ``distributed.py:196-257``): Z is
     zero-padded at its end to a multiple of the group's size (the pad
     enters the global reductions, as the JAX package's does), cut into
-    slabs at multiples of 8 (``spatial.slab_bounds``; a padded Z that is
-    not a multiple of 8 raises ``ValueError``, as the JAX forward fails at
-    a skip's concatenation there; with fewer 8-plane blocks than ranks the
-    last ranks' slabs are empty), this rank's slab runs
+    slabs at multiples of the model's downsampling factor (its
+    ``spatial_factor``: 8 for the models that pool three times, 16 for
+    RefUnet, basic_unet, vnet, segresnetvae and unet_tr, 32 for nnunet, 1
+    for highresnet; ``spatial.slab_bounds``). A padded Z that is not a
+    multiple of what the model's forward takes (its ``spatial_multiple``,
+    else the factor) raises ``ValueError``, where the JAX forward fails at a
+    skip's concatenation or nnunet's own check; a RefUnet takes a multiple
+    of 8, its last slab holding a partial block of 16; with fewer blocks
+    than ranks the last ranks' slabs are empty. This rank's slab runs
     through the model in bf16 (fp32 with ``no_amp``) under the slab
     context, and the heads — the main head (``ops/tta.py:main_head``), or
     every head with ``full_outputs`` — are gathered to every rank of the
-    group and un-padded: replicated, ``[B, X, Y, Z, classes]`` each. Every
-    rank of the group calls it with the whole volume. Eval only: the model
-    must be in eval mode and cover only layers the slab context covers
-    (``spatial.check_covered``); it runs without grad."""
+    group and un-padded: replicated, ``[B, X, Y, Z, classes]`` each
+    (SegResNetVAE's ``vae_loss`` is the whole volume's on every rank).
+    Every rank of the group calls it with the whole volume. Eval only: the
+    model must be in eval mode and cover only layers the slab context
+    covers (``spatial.check_covered``); it runs without grad."""
     if model.training:
         raise ValueError("the Z-sharded forward runs a model in eval mode")
     spatial.check_covered(model)
@@ -150,8 +156,9 @@ def spatial_sharded_forward(model: torch.nn.Module, x: torch.Tensor, topo: Topol
     pad = (-z) % n
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
-    bounds = spatial.slab_bounds(z + pad, n)
-    slab = spatial.Slab(topo.space_group, topo.space_rank, tuple(bounds), x.shape[1])
+    factor = getattr(model, "spatial_factor", spatial.BLOCK)
+    bounds = spatial.slab_bounds(z + pad, n, factor, getattr(model, "spatial_multiple", factor))
+    slab = spatial.Slab(topo.space_group, topo.space_rank, tuple(bounds), x.shape[1], factor)
     part = x[:, :, :, bounds[slab.rank]:bounds[slab.rank + 1]]
     part = part.to(torch.float32 if no_amp else torch.bfloat16)
     xin = part.permute(0, 4, 1, 2, 3).contiguous(memory_format=torch.channels_last_3d)

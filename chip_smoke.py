@@ -168,7 +168,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     (dense under ``--wire auto``, sparse under ``--wire sparse``); the
     wall per case of (a)-(c), each case's ``batch_time`` and
     ``data_time``, and the MB/s behind ``auto``'s choice, beside the
-    card's name and power limit.
+    card's name and power limit;
+26. the spatial axis for the rest of the model zoo: one
+    ``torch.distributed.run`` of phase 24's two-rank space row whose ranks
+    loop over the 14 names phase 24 does not run, each with seeded
+    weights: the reference's own networks (``equiunet_ref``,
+    ``att_equiunet``, ``equiunet_assp_evo_ref``, the unet family) at w48
+    on phase 4's padded 200×200×136 case (slabs 72 + 64; 80 + 56 for the
+    RefUnet names, whose four ceil-mode pools align the slabs at 16 and
+    leave the last a partial block), the MONAI-backed seven at their
+    published widths on its central 96³; each held to one process on the
+    same weights and input: (a) bf16 labels as close to one process's as
+    the lower of its own batch-of-two floor and phase 24's, less
+    ``SPATIAL_LABEL_MARGIN``, and to the fp32 labels as phase 24 holds
+    them; (b) fp32 heads (TF32 off on the ranks too), the main head within
+    ``SPATIAL_FP32_ATOL`` at unit scale, SegResNetVAE's VAE term within
+    ``ZOO_SPATIAL_VAE_RTOL``; (c) each rank's B1 launches a forward, and
+    B2's split for ``equiunet_assp_evo_ref``, equal to one process's
+    count, none of B2's one-call path; (d) each rank's peak memory and
+    seconds a forward beside one process's, and the phase's wall.
 
 Phase 1 also builds the native case loader (``csrc/nifti_native.cc``, g++);
 phase 6 times decode + crop + normalise on its path and on the numpy path
@@ -186,8 +204,8 @@ split entry points (statistics, apply) and B1 at phase 24's slab shapes.
 It prints the card's name and power limit, one ``{"kernels": [...]}`` JSON
 line, and last ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 Data and builds go under ``brats21_tpu_torch/_build/`` in this checkout.
-``python3 chip_smoke.py --rank-worker SPEC`` is one rank of phases 21-24,
-started by ``torch.distributed.run``.
+``python3 chip_smoke.py --rank-worker SPEC`` is one rank of phases 21-24
+and 26, started by ``torch.distributed.run``.
 """
 
 from __future__ import annotations
@@ -346,6 +364,46 @@ SPATIAL_LABEL_MARGIN = 5e-4
 SPATIAL_FP32_LABEL_MARGIN = 1e-4
 SPATIAL_FP32_ATOL = 1e-4
 SPATIAL_LOSS_RTOL = 1e-3
+# phase 26: every other --model name Z-sharded over the same space row of
+# two ranks, against one process on the same seeded weights and input:
+# (name, norm, act, input) — the reference's own networks at w48 on phase
+# 4's padded case (200×200×136: slabs 72 + 64 at factor 8, 80 + 56 at the
+# RefUnet's 16, its last slab a partial block), the MONAI-backed ones at
+# their published widths on the case's central 96³ (nnunet: a multiple
+# of 32; unet_tr and segresnetvae: their patch; 96³ rather than 128³ keeps
+# the script within 150 s of its 461-506 s before phase 26: it read
+# 667 s with 128³, the phase itself 99 s of it, on an NVIDIA H100 80GB
+# HBM3 at 700 W)
+ZOO_SPATIAL = [("equiunet_ref", "group", "relu", "case"),
+               ("att_equiunet", "group", "relu", "case"),
+               ("equiunet_assp_evo_ref", "group", "relu", "case"),
+               ("modified_unet", "group", "relu", "case"), ("att_unet", "group", "relu", "case"),
+               ("r2unet", "group", "relu", "case"), ("r2attunet", "group", "relu", "case"),
+               ("basic_unet", "instance", "leakyrelu", "crop"),
+               ("segresnet", "group", "relu", "crop"), ("segresnetvae", "group", "relu", "crop"),
+               ("highresnet", "batch", "relu", "crop"), ("vnet", "batch", "elu", "crop"),
+               ("nnunet", "instance", "leakyrelu", "crop"),
+               ("unet_tr", "instance", "relu", "crop")]
+ZOO_SPATIAL_CROP = 96
+# their B1 launches a main-head forward (phases 3 and 18's counts; no VAE
+# branch), and equiunet_assp_evo_ref's EvoNorms
+ZOO_SPATIAL_LAUNCHES = dict(equiunet_ref=26, att_equiunet=15, equiunet_assp_evo_ref=25,
+                            modified_unet=17, att_unet=17, r2unet=45, r2attunet=45,
+                            basic_unet=18, segresnet=25, segresnetvae=25, highresnet=7, vnet=0,
+                            nnunet=17, unet_tr=10)
+ZOO_SPATIAL_EVONORMS = dict(equiunet_assp_evo_ref=21)
+# the fp32 main head within SPATIAL_FP32_ATOL of one process's, times the
+# head's largest magnitude where it exceeds 1 (phase 3's rule: with their
+# default init the zoo's heads reach |10-100|), or within
+# ZOO_SPATIAL_FP32_FLOOR times how far one process's own main head moves
+# when its fp32 input moves by one rounding (a relative 2**-23, seeded), if
+# that is wider: the attention unets amplify fp32 rounding in their fp32
+# decoders (C6): r2attunet's sharded head read 0.0368 from one process's
+# on a head of |96| (NVIDIA H100 80GB HBM3, 700 W), where the first term
+# alone allows 0.0096, and lay within 1.1 of that floor, as every name's
+# did; on the CPU (w8, 48³) the sharded heads read 1.4-2.6 times it
+ZOO_SPATIAL_FP32_FLOOR = 10.0
+ZOO_SPATIAL_VAE_RTOL = 1e-3
 # phase 25: the backlog served through the eval pipeline, and how many of
 # its cases take --tta
 PIPELINE_CASES = 6
@@ -2097,6 +2155,8 @@ def rank_worker(spec_path: str) -> int:
         t0 = time.time()
         if job["cli"] == "spatial":
             run = spatial_rank_job(job, topo, Path(spec["out"]))
+        elif job["cli"] == "zoo_spatial":
+            run = zoo_spatial_rank_job(job, topo)
         elif job["cli"] == "train":
             from brats21_tpu_torch.cli.main_train import main as cli
             probe = StepProbe(tally)
@@ -2388,6 +2448,271 @@ def spatial_phase(work: Path, case_img, val_run: Path, dev) -> dict:
         f"{[round(v, 2) for v in res['peak_gib_per_rank']]} vs {res['peak_gib_one']:.2f}; "
         f"val case s per rank {[round(v, 2) for v in res['val_s_per_rank']]} vs "
         f"{one['val_s']:.2f}; in {time.time() - t_phase:.1f}s")
+    return res
+
+
+def zoo_spatial_inputs(case_img) -> dict:
+    """Phase 26's inputs ``[X, Y, Z, 4]`` fp32: phase 4's padded case, and
+    its central 96³ for the MONAI-backed names."""
+    c = ZOO_SPATIAL_CROP
+    starts = [(s - c) // 2 for s in case_img.shape[:3]]
+    crop = case_img[starts[0]:starts[0] + c, starts[1]:starts[1] + c, starts[2]:starts[2] + c]
+    return dict(case=case_img.astype("float32"), crop=crop.astype("float32"))
+
+
+def zoo_spatial_model(name: str, norm: str, act: str, dev, weights=None):
+    """``name`` at the published width with phase 26's seeded weights, or
+    with ``weights`` (a state dict file; the model is then built without
+    an init, on the meta device), in eval mode on ``dev``."""
+    import torch
+    from brats21_tpu_torch.models import get_model
+    cfg = {"model": name, "width": WIDTH, "norm": norm, "act": act,
+           "patch_size": [ZOO_SPATIAL_CROP] * 3}
+    if weights is None:                      # initialised on the card, seeded
+        torch.manual_seed(SEED + 26 + [z[0] for z in ZOO_SPATIAL].index(name))
+        with torch.device(dev):
+            return get_model(cfg).eval()
+    with torch.device("meta"):
+        model = get_model(cfg)
+    model.load_state_dict(torch.load(weights, map_location=dev, weights_only=True),
+                          strict=True, assign=True)
+    return model.eval()
+
+
+def zoo_spatial_rank_job(job: dict, topo) -> dict:
+    """One rank of phase 26's space row: each name Z-sharded over the row
+    (``spatial_sharded_forward``) on its input, against one process's
+    results saved by the phase (``job["names"][i]["ref"]``): (a) the bf16
+    main head after one untimed forward, the kernels' counters zeroed just
+    before it and read just after, its seconds and peak memory; its served
+    labels' agreement with one process's bf16 labels, and with the fp32
+    labels; (b) every head in fp32 (TF32 off, as the phase's one process
+    runs), each head's max |diff| from one process's, and SegResNetVAE's
+    VAE term."""
+    import numpy as np
+    import torch
+    from brats21_tpu_torch.ops.kernels import conv3d, evonorm
+    from brats21_tpu_torch.parallel.distributed import spatial_sharded_forward
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = topo.device
+    res = {}
+    for case in job["names"]:
+        name = case["name"]
+        t_name = time.time()
+        model = zoo_spatial_model(name, case["norm"], case["act"], dev, case["weights"])
+        x = torch.from_numpy(np.load(case["x"])).to(dev)[None]
+        ref = torch.load(case["ref"], weights_only=True)
+        with torch.inference_mode():
+            spatial_sharded_forward(model, x, topo)                  # untimed first use
+            torch.cuda.synchronize()
+            spatial_counts(conv3d, evonorm, reset=True)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.time()
+            logits = spatial_sharded_forward(model, x, topo)
+            torch.cuda.synchronize()
+            out = dict(forward_s=time.time() - t0,
+                       peak_bytes=torch.cuda.max_memory_allocated(dev),
+                       launches=spatial_counts(conv3d, evonorm))
+            labels = served_labels(logits, x)
+            del logits
+            full = spatial_sharded_forward(model, x.float(), topo, full_outputs=True,
+                                           no_amp=True)
+            torch.cuda.synchronize()
+        heads = output_heads(full)
+        vae = [float(h) for h in heads if h.dim() == 0]
+        heads = [h for h in heads if h.dim() > 0]
+        out.update(
+            label_share=float((labels == ref["labels"]).float().mean()),
+            label_share_vs_fp32=float((labels == ref["labels32"]).float().mean()),
+            heads_max_abs_diff=[float((h.cpu() - w).abs().max()) for h, w in
+                                zip(heads, ref["heads32"])],
+            heads_finite=all(bool(torch.isfinite(h).all()) for h in heads),
+            n_heads=len(heads), vae_loss=vae,
+            checksum=float(heads[0].double().abs().sum()), name_s=time.time() - t_name)
+        res[name] = out
+        del model, x, full, heads, ref
+        torch.cuda.empty_cache()
+    return res
+
+
+def zoo_spatial_phase(work: Path, case_img, floor_phase24: float, dev) -> dict:
+    """Phase 26: every --model name phase 24 does not run, Z-sharded over a
+    space row of two ranks of the card in one ``torch.distributed.run``
+    launch (each name at its own slab alignment: 8, 16 with a RefUnet, whose
+    last slab then holds a partial block, 32 for nnunet, 1 for highresnet),
+    against one process on the same seeded weights and input: (a) bf16
+    served labels, held to one process's as closely as the lowest of three
+    floors measured this run allows, less SPATIAL_LABEL_MARGIN: one
+    process's batch of two against its batch of one, phase 24's, and two
+    bf16 roundings each as far from the fp32 labels as one process's bf16
+    labels are (1 − 2·their disagreement: a model without EvoNorm computes
+    a batch of two per sample as it does one, so its own floor may read
+    1); and to the fp32 labels as closely as one process's bf16 labels are,
+    less SPATIAL_FP32_LABEL_MARGIN or three standard deviations of the
+    share of voxels one more bf16 rounding flips, if wider; (b)
+    fp32 heads, the main head within SPATIAL_FP32_ATOL at unit scale,
+    segresnetvae's VAE term within ZOO_SPATIAL_VAE_RTOL relative; (c) each
+    rank's B1 launches a forward (and B2's split for equiunet_assp_evo_ref)
+    equal to one process's count, none of B2's one-call path on a slab;
+    (d) each rank's peak memory and seconds a forward beside one
+    process's."""
+    import numpy as np
+    import torch
+    from brats21_tpu_torch.learning.engine import forward_channels_last
+    from brats21_tpu_torch.ops.kernels import conv3d, evonorm
+    from brats21_tpu_torch.ops.tta import main_head
+    t_phase = time.time()
+    folder = work / "zoo_spatial_inputs"
+    folder.mkdir()
+    inputs = {}
+    for key, arr in zoo_spatial_inputs(case_img).items():
+        inputs[key] = folder / f"{key}.npy"
+        np.save(inputs[key], arr)
+    one, jobs = {}, []
+    for name, norm, act, which in ZOO_SPATIAL:
+        t_name = time.time()
+        model = zoo_spatial_model(name, norm, act, dev)
+        weights = folder / f"{name}.pt"
+        torch.save(model.state_dict(), weights)
+        x = torch.from_numpy(np.load(inputs[which])).to(dev)[None]
+        with torch.inference_mode():
+            forward_channels_last(model, x.to(torch.bfloat16))       # untimed first use
+            torch.cuda.synchronize()
+            spatial_counts(conv3d, evonorm, reset=True)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.time()
+            logits = main_head(forward_channels_last(model, x.to(torch.bfloat16)))
+            torch.cuda.synchronize()
+            res = dict(forward_s=time.time() - t0,
+                       peak_bytes=torch.cuda.max_memory_allocated(dev),
+                       launches=spatial_counts(conv3d, evonorm, reset=True))
+            labels = served_labels(logits, x)
+            del logits
+            two = main_head(forward_channels_last(
+                model, x.repeat(2, 1, 1, 1, 1).to(torch.bfloat16)))
+            labels_two = served_labels(two[:1], x)
+            del two
+            full = forward_channels_last(model, x.float(), with_deep=True)
+            heads = output_heads(full)
+            labels32 = served_labels(heads[0], x)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            nudged = x.float() * (1.0 + 2.0 ** -23 * torch.randn(x.shape, generator=gen,
+                                                                   device=dev))
+            fp32_floor = float((main_head(forward_channels_last(model, nudged))
+                                - heads[0]).abs().max())
+            del nudged
+        vae = [float(h) for h in heads if h.dim() == 0]
+        heads = [h.cpu() for h in heads if h.dim() > 0]
+        ref = folder / f"{name}_ref.pt"
+        torch.save(dict(heads32=heads, labels=labels, labels32=labels32), ref)
+        res.update(floor=float((labels_two == labels).float().mean()), voxels=labels.numel(),
+                   one_vs_fp32=float((labels == labels32).float().mean()),
+                   vae_loss=vae, main_scale=max(float(heads[0].abs().max()), 1.0),
+                   fp32_floor=fp32_floor, one_process_phase_s=time.time() - t_name,
+                   input=list(x.shape[1:4]))
+        one[name] = res
+        jobs.append(dict(name=name, norm=norm, act=act, weights=str(weights),
+                         x=str(inputs[which]), ref=str(ref)))
+        del model, x, full, heads, labels, labels_two, labels32
+        torch.cuda.empty_cache()
+    t_one = time.time() - t_phase
+    ranks = launch_ranks(work, "zoo_spatial", [dict(cli="zoo_spatial", name="zoo_spatial",
+                                                    names=jobs)], space=SPATIAL_SPACE,
+                         timeout=900)
+    runs = [r["runs"][0] for r in ranks]
+    res = dict(space=SPATIAL_SPACE, one_process_s=t_one, names={})
+    failures = []
+    for name, _, _, _ in ZOO_SPATIAL:
+        mine = [run[name] for run in runs]
+        ref = one[name]
+        # the lowest of three floors measured this run: this name's batch of
+        # two, phase 24's, and two independent bf16 roundings of one forward,
+        # each as far from the fp32 labels as one process's bf16 labels are
+        bf16_floor = 1.0 - 2.0 * (1.0 - ref["one_vs_fp32"])
+        limit = min(ref["floor"], floor_phase24, bf16_floor) - SPATIAL_LABEL_MARGIN
+        # phase 24's margin to the fp32 labels, or three standard deviations
+        # of the count of voxels that one more bf16 rounding flips, if wider
+        margin32 = max(SPATIAL_FP32_LABEL_MARGIN,
+                       3.0 * math.sqrt((1.0 - ref["one_vs_fp32"]) / ref["voxels"]))
+        main_limit = max(SPATIAL_FP32_ATOL * ref["main_scale"],
+                         ZOO_SPATIAL_FP32_FLOOR * ref["fp32_floor"])
+        want = dict(ref["launches"], evonorm_s0_stats=ref["launches"]["evonorm_s0"],
+                    evonorm_s0_apply=ref["launches"]["evonorm_s0"], evonorm_s0=0)
+        row = dict(input=ref["input"], label_share=[m["label_share"] for m in mine],
+                   label_floor_batch_of_two=ref["floor"], label_floor_bf16=bf16_floor,
+                   label_limit=limit,
+                   label_share_vs_fp32=[m["label_share_vs_fp32"] for m in mine],
+                   one_process_vs_fp32=ref["one_vs_fp32"], fp32_label_margin=margin32,
+                   fp32_heads_max_abs_diff=[m["heads_max_abs_diff"] for m in mine],
+                   fp32_main_limit=main_limit, fp32_floor_one_rounding=ref["fp32_floor"],
+                   vae_loss=[m["vae_loss"] for m in mine], vae_loss_one=ref["vae_loss"],
+                   launches_per_rank=[m["launches"] for m in mine],
+                   one_process_launches=ref["launches"],
+                   forward_s_per_rank=[m["forward_s"] for m in mine],
+                   forward_s_one=ref["forward_s"],
+                   peak_gib_per_rank=[m["peak_bytes"] / 2**30 for m in mine],
+                   peak_gib_one=ref["peak_bytes"] / 2**30)
+        res["names"][name] = row
+        if ref["launches"]["conv3x3x3"] != ZOO_SPATIAL_LAUNCHES[name] or \
+                ref["launches"]["evonorm_s0"] != ZOO_SPATIAL_EVONORMS.get(name, 0):
+            failures.append(f"phase 26 {name}: one process launched {ref['launches']}, "
+                            f"want {ZOO_SPATIAL_LAUNCHES[name]} B1 and "
+                            f"{ZOO_SPATIAL_EVONORMS.get(name, 0)} B2")
+        if mine[0]["checksum"] != mine[1]["checksum"] or not all(
+                m["heads_finite"] and m["n_heads"] == len(mine[0]["heads_max_abs_diff"])
+                for m in mine):
+            failures.append(f"phase 26 {name}: the ranks' heads differ or are not "
+                            f"finite: {[m['checksum'] for m in mine]}")
+        for r, m in enumerate(mine):
+            if m["launches"] != want:
+                failures.append(f"phase 26 {name} rank {r}: launches a forward "
+                                f"{m['launches']}, want {want} (one process "
+                                f"{ref['launches']})")
+            if m["label_share"] < limit or \
+                    m["label_share_vs_fp32"] < ref["one_vs_fp32"] - margin32:
+                failures.append(
+                                f"phase 26 {name} rank {r} bf16: labels agree with one process's on "
+                                f"{m['label_share']:.6f} of voxels (limit {limit:.6f}: one process's "
+                                f"batch of two {ref['floor']:.6f}, phase 24's {floor_phase24:.6f}, "
+                                f"bf16's {bf16_floor:.6f}), with "
+                                f"the fp32 labels on {m['label_share_vs_fp32']:.6f} (one process "
+                                f"{ref['one_vs_fp32']:.6f}, margin {margin32:.3g})")
+            if not m["heads_max_abs_diff"][0] <= main_limit:
+                failures.append(f"phase 26 {name} rank {r} fp32: main head max |diff| "
+                                f"{m['heads_max_abs_diff'][0]:.3g} (limit "
+                                f"{main_limit:.3g})")
+            for got, w in zip(m["vae_loss"], ref["vae_loss"]):
+                if not abs(got - w) <= ZOO_SPATIAL_VAE_RTOL * abs(w):
+                    failures.append(f"phase 26 {name} rank {r}: vae_loss {got} vs one "
+                                    f"process {w}")
+            if len(m["vae_loss"]) != len(ref["vae_loss"]):
+                failures.append(f"phase 26 {name} rank {r}: VAE terms {m['vae_loss']} "
+                                f"vs {ref['vae_loss']}")
+        vae = (f"; vae_loss per rank {row['vae_loss']} vs one process {ref['vae_loss']}"
+               if ref["vae_loss"] else "")
+        log(f"phase 26 {name} {ref['input']}: bf16 labels equal to one process's on "
+            f"{[round(v, 6) for v in row['label_share']]} of voxels (limit {limit:.6f}; "
+            f"batch of two {ref['floor']:.6f}, bf16 {bf16_floor:.6f}), to the fp32 labels "
+            f"{[round(v, 6) for v in row['label_share_vs_fp32']]} (one process "
+            f"{ref['one_vs_fp32']:.6f}, margin {margin32:.3g}); fp32 heads max |diff| rank 0 "
+            f"{[f'{d:.3g}' for d in mine[0]['heads_max_abs_diff']]} (main limit "
+            f"{main_limit:.3g}: one process's rounding floor {ref['fp32_floor']:.3g}){vae}; "
+            f"launches a forward per rank {row['launches_per_rank']} (one process "
+            f"{ref['launches']}); forward s per rank "
+            f"{[round(v, 3) for v in row['forward_s_per_rank']]} vs {ref['forward_s']:.3f}; "
+            f"peak GiB per rank {[round(v, 2) for v in row['peak_gib_per_rank']]} vs "
+            f"{row['peak_gib_one']:.2f}")
+    res["wall_s"] = time.time() - t_phase
+    log(f"phase 26: {len(ZOO_SPATIAL)} names Z-sharded over {SPATIAL_SPACE} ranks in one "
+        f"launch; one process's side {t_one:.1f}s "
+        f"({ {n: round(v['one_process_phase_s'], 1) for n, v in one.items()} }), the ranks' "
+        f"{sum(runs[0][n]['name_s'] for n in one):.1f}s (each name's on rank 0: "
+        f"{ {n: round(runs[0][n]['name_s'], 1) for n in one} }); phase wall "
+        f"{res['wall_s']:.1f}s")
+    shutil.rmtree(folder, ignore_errors=True)
+    if failures:
+        raise AssertionError("phase 26: " + "; ".join(failures))
     return res
 
 
@@ -3288,6 +3613,10 @@ def main() -> int:
                               Path(val["run_dir"]), val_data, card, dev)
     take_native(25, cli=True)
 
+    # 26. every other --model name Z-sharded over the space row
+    zoo_spatial = zoo_spatial_phase(work, shape_to_divisible(sample["img"])[0],
+                                    spatial_res["label_share_floor_batch_of_two"], dev)
+
     sliding_case, = ensemble["sliding"]["cases"]
     kernel_rows = []
     for name, route, source, replaces, tolerance, res, res_train, ms_per in (
@@ -3335,6 +3664,9 @@ def main() -> int:
                           for k, v in serve2.items()},
                        two_ranks_spatial_forward_per_rank=[
                            r.get(name, 0) for r in spatial_res["launches_per_rank"]],
+                       two_ranks_zoo_spatial_forward_per_rank={
+                           model: [r.get(name, 0) for r in zrow["launches_per_rank"]]
+                           for model, zrow in zoo_spatial["names"].items()},
                        pipeline_case=pipeline["launches"]["b"][name] // pipeline["cases"],
                        pipeline_case_tta=pipeline["launches"]["d_b"][name]
                        // PIPELINE_TTA_CASES,
@@ -3369,6 +3701,11 @@ def main() -> int:
                 evo_split, launches_per_rank={
                     part: [r[f"evonorm_s0_{part}"] for r in spatial_res["launches_per_rank"]]
                     for part in ("stats", "apply")},
+                zoo_launches_per_rank={
+                    model: {part: [r[f"evonorm_s0_{part}"] for r in zrow["launches_per_rank"]]
+                            for part in ("stats", "apply")}
+                    for model, zrow in zoo_spatial["names"].items()
+                    if zrow["one_process_launches"]["evonorm_s0"]},
                 sources="evonorm_s0_stats / evonorm_s0_apply in "
                         "brats21_tpu_torch/ops/kernels/evonorm.py",
                 tolerance="stats: counts equal, inv within 2**-8 relative; apply: bf16 "
@@ -3398,6 +3735,7 @@ def main() -> int:
                    zoo_models=zoo, model1=model1, batchnorm=batchnorm, monai_zoo=monai,
                    nnunet=nnunet, unetr=unetr, ddp=ddp, serve_two_ranks=serve2,
                    two_nodes=nodes, spatial=spatial_res, pipeline=pipeline,
+                   zoo_spatial=zoo_spatial,
                    total_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))
     shutil.rmtree(work, ignore_errors=True)

@@ -6,9 +6,15 @@ evaluation and B2's split statistics) on the CPU, with real gloo ranks
 numpy inputs and weights: its ``halo_exchange`` and ``sharded_conv3d``
 under ``shard_map``, its GSPMD ``spatial_sharded_forward`` on meshes of
 ``space=2|4`` over the 8 CPU devices ``tests/conftest.py`` forces, and its
-``Engine`` on a data×space mesh. Two launches of four ranks (space rows of
-2 and of 4), one torch thread a rank, every collective bounded by 60 s.
-Width 4, volumes of at most 16×16×40."""
+``Engine`` on a data×space mesh. Every ``--model`` name runs Z-sharded:
+the reference's own networks at width 4, the MONAI-backed ones at their
+fixed widths (``unet_tr`` as ViT of hidden 48 at 32³), each slab cut at the
+model's downsampling factor. Two launches of four ranks (space rows of 2
+and of 4), one torch thread a rank, every collective bounded by 60 s.
+Volumes of at most 16×16×40, 32×32×32 for ``unet_tr`` and 32×32×64 for
+nnunet."""
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -29,56 +35,150 @@ from brats21_tpu.parallel.mesh import make_mesh
 from brats21_tpu.utils.reporting import EvaluationReport as JaxReport
 from brats21_tpu_torch.config import TrainConfig
 from brats21_tpu_torch.data.nifti import read_nifti
-from brats21_tpu_torch.learning.engine import Engine
+from brats21_tpu_torch.learning.engine import Engine, forward_channels_last
 from brats21_tpu_torch.learning.losses import make_criterion
 from brats21_tpu_torch.models import get_model
 from brats21_tpu_torch.models.assp_evo import EvoNorm3D
-from brats21_tpu_torch.models.equiunet import ChannelGate
-from brats21_tpu_torch.models.layers import Conv3d, GroupNorm, InstanceNorm, Upsample
+from brats21_tpu_torch.models.equiunet import ChannelGate, SpatialGate
+from brats21_tpu_torch.models.layers import (BCNorm, Conv3d, ConvAWS3d, ConvTranspose3d,
+                                             GroupNorm, InstanceNorm, Upsample,
+                                             UpsampleNearest, WSConv3d)
+from brats21_tpu_torch.models.unetr import UNETR
 from brats21_tpu_torch.ops.kernels.evonorm import (evonorm_s0_apply, evonorm_s0_plain,
                                                    evonorm_s0_stats, inv_std)
 from brats21_tpu_torch.parallel import spatial as sp
 from brats21_tpu_torch.parallel.distributed import spatial_sharded_forward
 from brats21_tpu_torch.parallel.mesh import Topology
+from brats21_tpu_torch.utils.weights import state_dict_from_flax
 from test_torch_port_kernels import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_port_parallel import EVAL_CFG, METRICS, _case, _launch, _Loader
-from test_torch_port_zoo import _cfg, _port_from, _random_variables
+from test_torch_port_zoo import _cfg, _fill
+from test_torch_port_zoo_monai import UNETR_SMALL
 
 SIDE = 16
 MODELS = {"assp": _cfg("equiunet_assp_evo", width=4),
           "equi": _cfg("equiunet", width=4),
-          "equi_instance": _cfg("equiunet", "instance", width=4)}
+          "equi_instance": _cfg("equiunet", "instance", width=4),
+          # every other --model name: the reference's own networks at width 4,
+          # the MONAI-backed ones at their fixed widths (unet_tr smaller)
+          "equi_ref": _cfg("equiunet_ref", width=4),
+          "att_equi": _cfg("att_equiunet", width=4),
+          "assp_ref": _cfg("equiunet_assp_evo_ref", width=4),
+          **{name: _cfg(name, width=4) for name in ("modified_unet", "att_unet", "r2unet",
+                                                    "r2attunet")},
+          "basic_unet": _cfg("basic_unet", "instance", width=4, act="leakyrelu"),
+          "segresnet": _cfg("segresnet"),
+          "segresnetvae": dict(_cfg("segresnetvae"), patch_size=[SIDE, SIDE, 32]),
+          "highresnet": _cfg("highresnet", "batch"),
+          "vnet": _cfg("vnet", act="elu"),
+          "nnunet": _cfg("nnunet", "instance"),
+          "unet_tr": dict(_cfg("unet_tr", "instance"), unetr=UNETR_SMALL)}
+# X and Y of a name's volumes: nnunet needs multiples of 32, unet_tr its img_size
+SIDES = {"nnunet": 32, "unet_tr": 32}
 # (model, Z) a space size runs: uneven slabs (Z = 40: 24/16 on 2 ranks,
 # 16/8/8/8 on 4, so 2/1/1/1 planes at level 4, where the ASPP's dilation-6
 # halo and the bottom's dilation 2 pass the next slab), the JAX package's
 # Z pad (30 → 32 on 4 ranks), fewer 8-plane blocks than ranks (16 on 4:
 # 8/8/0/0, two ranks with empty slabs), and a padded Z its forward cannot
-# take
-FORWARDS = {2: [("assp", 40), ("equi", 40), ("equi_instance", 40)],
+# take. Each other name at the smallest Z its factor gives two slabs: the
+# RefUnet names (factor 16, Z a multiple of 8) at 40, a partial block on
+# the last slab (32 + 8; 16/16/8/0); the factor-8 names at 24 (16/8;
+# 8/8/8/0), the factor-16 ones at 32 (16/16; 16/16/0/0), nnunet at 64
+# (32/32; 32/32/0/0), highresnet (factor 1) at 12 (6/6; 3/3/3/3, its
+# dilation-4 halo passing the next slab)
+ZOO = [("equi_ref", 40), ("att_equi", 24), ("assp_ref", 40), ("modified_unet", 24),
+       ("att_unet", 24), ("r2unet", 24), ("r2attunet", 24), ("basic_unet", 32),
+       ("segresnet", 24), ("segresnetvae", 32), ("highresnet", 12), ("vnet", 32),
+       ("nnunet", 64), ("unet_tr", 32)]
+FORWARDS = {2: [("assp", 40), ("equi", 40), ("equi_instance", 40)] + ZOO,
             4: [("assp", 40), ("equi", 40), ("assp", 30), ("assp", 16), ("equi", 16),
-                ("assp", 36), ("equi", 36)]}
+                ("assp", 36), ("equi", 36)] + ZOO}
 # halo cases: (X slabs, halo); X-sharded as the JAX package's default axis
 HALOS = {2: [((4, 4), 1), ((4, 4), 3), ((5, 3), 4)],
          4: [((2, 2, 2, 2), 1), ((2, 2, 2, 2), 2), ((2, 2, 2, 2), 3), ((3, 1, 2, 2), 2)]}
 CONV_KERNELS = (3, 5)
 # single layers on Z-slabs of a 40-plane input, against the unsharded
-# port: each sharded form the two models do not reach
+# port: each sharded form the models do not reach, and the weight-
+# standardised convs, which no model holds
 LAYERS = {"evonorm_s0_plain_form": lambda: EvoNorm3D(8, efficient=False),
           "evonorm_b0": lambda: EvoNorm3D(8, version="B0"),
           "groupnorm": lambda: GroupNorm(8, 4),
           "instancenorm": lambda: InstanceNorm(8),
+          "bcnorm": lambda: BCNorm(8),
           "channel_gate": lambda: ChannelGate(8, 4),
+          "spatial_gate": lambda: SpatialGate("instance"),
           "upsample_half_pixel": lambda: Upsample(2, align_corners=False),
           "upsample_x4": lambda: Upsample(4, align_corners=True),
+          "upsample_nearest_x2": lambda: UpsampleNearest(2),
           "conv_dilation_10": lambda: Conv3d(8, 6, 3, dilation=10),
-          "conv_stride_2": lambda: Conv3d(8, 6, 2, stride=2, padding=0)}
+          "conv_stride_2": lambda: Conv3d(8, 6, 2, stride=2, padding=0),
+          "conv_transpose_2": lambda: ConvTranspose3d(8, 6),
+          "wsconv_dilation_2": lambda: WSConv3d(8, 6, 3, dilation=2),
+          "convaws_stride_2": lambda: ConvAWS3d(8, 6, 3, stride=2)}
 MEMBER_Z = 24
 ENGINE_MODES = {"spatial": (1, (3, 4, 5), {}, (True, False)),
-                "spatial_tta": (1, (4,), {"use_tta": True}, (False, False))}
+                "spatial_tta": (1, (4,), {"use_tta": True}, (False, False)),
+                "spatial_ref": (1, (3, 4, 5), {}, (True, False))}
+# the mode's members' model (assp unless named)
+ENGINE_MODELS = {"spatial_ref": "assp_ref"}
+
+
+def _jax_model(name):
+    cfg = MODELS[name]
+    if "unetr" in cfg:
+        from brats21_tpu.models.unetr import UNETR as JaxUNETR
+        return JaxUNETR(num_classes=3, **cfg["unetr"])
+    return jax_get_model(cfg)
+
+
+def _shape(name, z=None):
+    """A name's input volume ``[1, X, Y, Z, 4]`` (Z its init's unless
+    given: the VAE's Linear layers take the patch, UNETR its img_size)."""
+    side = SIDES.get(name, SIDE)
+    cfg = MODELS[name]
+    z = z or (cfg.get("patch_size") or cfg.get("unetr", {}).get("img_size") or [side] * 3)[2]
+    return (1, side, side, z, 4)
 
 
 def _variables(name, seed):
-    return _random_variables(jax_get_model(MODELS[name]), seed=seed)
+    """Numpy-seeded flax variables of ``name`` (``test_torch_port_zoo._fill``)."""
+    return _fill(jax.eval_shape(_jax_model(name).init, jax.random.PRNGKey(0),
+                                jax.ShapeDtypeStruct(_shape(name), jnp.float32)), seed)
+
+
+def _port_from(variables, name):
+    """The port's model of ``name`` with the flax ``variables``."""
+    cfg = MODELS[name]
+    model = UNETR(**cfg["unetr"]) if "unetr" in cfg else get_model(cfg)
+    model.load_state_dict(state_dict_from_flax(
+        variables["params"], cfg["model"], cfg["norm"], variables.get("batch_stats")),
+        strict=True)
+    return model
+
+
+def _engine_members(name, seeds):
+    """Members whose output convs (and a RefUnet's last) are ×20: few
+    voxels near the threshold."""
+    members = [_variables(name, s) for s in seeds]
+    for v in members:
+        convs = [v["params"]["out_conv"]]
+        if "refunet" in v["params"]:
+            convs.append(v["params"]["refunet"]["conv_d0"])
+        for conv in convs:
+            conv["Conv_0"]["kernel"] = conv["Conv_0"]["kernel"] * 20.0
+    return members
+
+
+def _flat(out):
+    """(heads, auxiliary scalars) of a model output in either framework:
+    logits, (logits, deeps), ([refined, logits], deeps) or (seg,
+    {"vae_loss": s}), in that order."""
+    if isinstance(out, dict):
+        return [], [out["vae_loss"]]
+    if isinstance(out, (tuple, list)):
+        parts = [_flat(o) for o in out]
+        return sum((h for h, _ in parts), []), sum((a for _, a in parts), [])
+    return [out], []
 
 
 @pytest.fixture(scope="module")
@@ -87,35 +187,34 @@ def spatial_run(tmp_path_factory):
     (rows of 2: two data rows, the engine on 2×2; one row of 4)."""
     rng = np.random.default_rng(51)
     variables = {name: _variables(name, 52 + i) for i, name in enumerate(MODELS)}
-    state = {name: _port_from(v, MODELS[name]).state_dict() for name, v in variables.items()}
-    xs = {z: rng.standard_normal((1, SIDE, SIDE, z, 4)).astype(np.float32)
-          for z in (16, 30, 36, 40)}
+    state = {name: _port_from(v, name).state_dict() for name, v in variables.items()}
+    xs = {(name, z): rng.standard_normal(_shape(name, z)).astype(np.float32)
+          for name, z in sorted({f for fs in FORWARDS.values() for f in fs})}
     torch.manual_seed(53)
     layers = {k: (make().eval(), rng.standard_normal((1, 8, 6, 5, 40)).astype(np.float32))
               for k, make in LAYERS.items()}
     for module, _ in layers.values():          # affines off their identity
-        if not isinstance(module, Conv3d):
+        if not isinstance(module, (torch.nn.Conv3d, torch.nn.ConvTranspose3d)):
             for p in module.parameters():
                 p.data.copy_(1.0 + 0.2 * torch.randn_like(p))
     member = dict(x=rng.standard_normal((1, SIDE, SIDE, MEMBER_Z, 4)).astype(np.float32),
                   seg=(rng.random((1, SIDE, SIDE, MEMBER_Z, 3)) > 0.5).astype(np.float32))
-    members = [_variables("assp", s) for s in (56, 57)]
-    for v in members:        # output conv ×20: few voxels near the threshold
-        v["params"]["out_conv"]["Conv_0"]["kernel"] = \
-            v["params"]["out_conv"]["Conv_0"]["kernel"] * 20.0
+    members = {"assp": _engine_members("assp", (56, 57)),
+               "assp_ref": _engine_members("assp_ref", (58,))}
     batches = {mode: [_case(s) for s in m[1]] for mode, m in ENGINE_MODES.items()}
     halo_x = {n: rng.standard_normal((1, 2, 8, 3, 4)).astype(np.float32) for n in HALOS}
     conv_x = rng.standard_normal((1, 3, 8, 5, 6)).astype(np.float32)
     conv_w = {k: (rng.standard_normal((4, 3, k, k, k)) / k ** 1.5).astype(np.float32)
               for k in CONV_KERNELS}
     out = tmp_path_factory.mktemp("spatial_run")
-    ranks = {}
-    for n in (2, 4):
+
+    def launch(n):
         job = dict(
             halo={f"{sizes}/{h}": (halo_x[n], h, list(sizes)) for sizes, h in HALOS[n]},
             conv={k: (conv_x, conv_w[k]) for k in CONV_KERNELS},
             layers=layers,
-            forward={f"{name}/{z}": dict(cfg=MODELS[name], state_dict=state[name], x=xs[z])
+            forward={f"{name}/{z}": dict(cfg=MODELS[name], state_dict=state[name],
+                                         x=xs[name, z], main=(name, z) not in ZOO)
                      for name, z in FORWARDS[n]})
         kinds = ["spatial"]
         if n == 2:
@@ -124,15 +223,42 @@ def spatial_run(tmp_path_factory):
             kinds.append("engine_eval")
         spec = {"kinds": kinds, "space": n, "spatial": job,
                 "engine_eval": dict(train_cfg=EVAL_CFG, cfg=MODELS["assp"],
-                                    members=[_port_from(v, MODELS["assp"]).state_dict()
-                                             for v in members],
+                                    members=[_port_from(v, "assp").state_dict()
+                                             for v in members["assp"]],
+                                    mode_members={
+                                        m: (MODELS[name], [_port_from(v, name).state_dict()
+                                                           for v in members[name]])
+                                        for m, name in ENGINE_MODELS.items()},
                                     batches=batches, out=str(out / "engine"),
                                     modes={m: (k, kw, {})
                                            for m, (k, _, kw, _) in ENGINE_MODES.items()})}
-        ranks[n] = _launch(spec, out / f"space{n}", nproc=4, timeout=240)
+        return _launch(spec, out / f"space{n}", nproc=4, timeout=240)
+
+    # the zoo's references while the ranks run
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(lambda: {n: launch(n) for n in (2, 4)})
+        refs = {(name, z): _zoo_reference(name, variables[name], xs[name, z])
+                for name, z in ZOO}
+        ranks = ranks.result()
     return dict(ranks=ranks, variables=variables, xs=xs, layers=layers, member=member,
                 members=members, batches=batches, halo_x=halo_x, conv_x=conv_x,
-                conv_w=conv_w, out=out)
+                conv_w=conv_w, out=out, refs=refs)
+
+
+def _zoo_reference(name, variables, x):
+    """(heads, aux scalars) of ``x`` through the JAX package's GSPMD
+    ``spatial_sharded_forward`` on a space mesh of 2 and through the port's
+    model in one process, fp32, every head."""
+    jmodel = _jax_model(name)
+    jax_out = jax_spatial_forward(
+        make_mesh(jax.devices()[:2], space=2),
+        lambda v, inp: jmodel.apply(v, inp, deterministic=True),
+        jax.tree_util.tree_map(jnp.asarray, variables), jnp.asarray(x), full_outputs=True)
+    with torch.no_grad():
+        port_out = forward_channels_last(_port_from(variables, name).eval(),
+                                         torch.from_numpy(x), with_deep=True)
+    return {side: ([np.asarray(h) for h in heads], [float(a) for a in aux])
+            for side, (heads, aux) in (("jax", _flat(jax_out)), ("port", _flat(port_out)))}
 
 
 def _space_mesh(n):
@@ -207,11 +333,6 @@ def test_sharded_conv3d_matches_jax(spatial_run, n, k):
 
 # ------------------------------------------------------- the model forward
 
-def _heads(out):
-    main, deeps = out
-    return [main, *deeps]
-
-
 @pytest.mark.parametrize("n,name,z", [(n, name, z) for n in FORWARDS
                                       for name, z in FORWARDS[n]])
 def test_spatial_forward_matches_jax(spatial_run, n, name, z):
@@ -223,11 +344,40 @@ def test_spatial_forward_matches_jax(spatial_run, n, name, z):
     JAX pad (to 32, at the end, inside the global reductions); Z = 16 on 4
     ranks leaves two slabs empty, whose ranks join every exchange; at Z = 36 on
     4 ranks (no pad, 36 not a multiple of 8) the JAX forward fails at a
-    skip's concatenation and the port raises ValueError naming Z."""
-    variables = jax.tree_util.tree_map(jnp.asarray, spatial_run["variables"][name])
-    jmodel = jax_get_model(MODELS[name])
-    x = spatial_run["xs"][z]
+    skip's concatenation and the port raises ValueError naming Z.
+
+    Every other --model name (:data:`ZOO`, at its own slab alignment: the
+    RefUnet names with a partial block on the last slab under their
+    ceil-mode pools, empty slabs on 4 ranks) runs its every head (the deep
+    heads, the RefUnet's refined and plain logits, SegResNetVAE's
+    ``vae_loss``) within 2e-5 of the port's own forward in one process,
+    times the head's largest magnitude where that exceeds 1 (the zoo's heads
+    reach 3-10, and fp32 sums in another order move them by that share);
+    and no further from the JAX package's GSPMD forward on a space mesh of
+    2 than that one-process forward is, plus the same (the one-process port
+    alone differs from the JAX model by up to 5e-5 there: oneDNN's fp32
+    convs against XLA's)."""
+    x = spatial_run["xs"][name, z]
     ranks = [res["spatial"]["forward"][f"{name}/{z}"] for res in spatial_run["ranks"][n]]
+    if (name, z) in ZOO:
+        ref = spatial_run["refs"][name, z]
+        (want, want_aux), (one, one_aux) = ref["jax"], ref["port"]
+        for got in ranks:
+            heads, aux = _flat(got["full"])
+            assert len(heads) == len(want) == len(one) and len(aux) == len(want_aux)
+            for i, (g, w, o) in enumerate([*zip(heads, want, one),
+                                           *zip(aux, want_aux, one_aux)]):
+                g, w, o = (np.asarray(v, dtype=np.float32) for v in (g, w, o))
+                assert g.shape == w.shape == o.shape
+                assert g.ndim == 0 or g.shape == (*x.shape[:4], 3)
+                tol = 2e-5 * max(1.0, float(np.abs(w).max()))
+                np.testing.assert_allclose(g, o, atol=tol, rtol=0, err_msg=f"output {i}")
+                np.testing.assert_allclose(g, w, atol=float(np.abs(o - w).max()) + tol, rtol=0,
+                                           err_msg=f"output {i}")
+            torch.testing.assert_close(heads[0], _flat(ranks[0]["full"])[0][0], rtol=0, atol=0)
+        return
+    variables = jax.tree_util.tree_map(jnp.asarray, spatial_run["variables"][name])
+    jmodel = _jax_model(name)
 
     def apply(v, inp):
         return jmodel.apply(v, inp, deterministic=True)
@@ -239,28 +389,31 @@ def test_spatial_forward_matches_jax(spatial_run, n, name, z):
         for got in ranks:
             assert "Z = 36" in got["error"] and "multiple of 8" in got["error"]
         return
-    want = [np.asarray(h) for h in _heads(jax_spatial_forward(
-        _space_mesh(n), apply, variables, jnp.asarray(x), full_outputs=True))]
+    want, _ = _flat(jax_spatial_forward(
+        _space_mesh(n), apply, variables, jnp.asarray(x), full_outputs=True))
     for got in ranks:
-        np.testing.assert_allclose(got["main"].numpy(), want[0], atol=2e-5, rtol=0)
-        heads = _heads(got["full"])
+        np.testing.assert_allclose(got["main"].numpy(), np.asarray(want[0]), atol=2e-5, rtol=0)
+        heads, _ = _flat(got["full"])
         assert len(heads) == len(want)
         for i, (g, w) in enumerate(zip(heads, want)):
             assert g.shape == w.shape == (1, SIDE, SIDE, z, 3)
-            np.testing.assert_allclose(g.numpy(), w, atol=2e-5, rtol=0, err_msg=f"head {i}")
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5, rtol=0,
+                                       err_msg=f"head {i}")
         torch.testing.assert_close(got["main"], ranks[0]["main"], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("n", [2, 4])
 @pytest.mark.parametrize("key", sorted(LAYERS))
 def test_sharded_layers_match_unsharded(spatial_run, n, key):
-    """Each sharded form the two models do not reach, on Z slabs of 40
-    planes (24/16, 16/8/8/8) gathered, against the same layer unsharded,
-    fp32 1e-5: EvoNorm's plain S0 form and B0 in eval (group_std,
-    instance_std), GroupNorm, InstanceNorm, the global max and mean pools
-    (CBAM's channel gate), a half-pixel ×2 and an align-corners ×4 upsample,
-    a dilation-10 conv (its halo passes the next slab) and an aligned
-    stride-2 conv."""
+    """Single sharded forms on Z slabs of 40 planes (24/16, 16/8/8/8)
+    gathered, against the same layer unsharded, fp32 1e-5: EvoNorm's plain
+    S0 form and B0 in eval (group_std, instance_std), GroupNorm,
+    InstanceNorm, BCNorm, the global max and mean pools (CBAM's channel
+    gate), CBAM's spatial gate (7³ conv, one-channel norm), a half-pixel ×2,
+    an align-corners ×4 and a nearest ×2 upsample, a dilation-10 conv (its
+    halo passes the next slab), an aligned stride-2 conv, a 2³/s2
+    transposed conv, and the weight-standardised convs (dilated, strided),
+    which no model holds."""
     module, x = spatial_run["layers"][key]
     with torch.no_grad():
         want = module(torch.from_numpy(x).contiguous(memory_format=torch.channels_last_3d))
@@ -297,8 +450,10 @@ def test_engine_member_forward_matches_jax(spatial_run):
 def test_engine_data_space_evaluate_matches_reference(spatial_run, mode, tmp_path):
     """Engine.evaluate on a 2×2 data×space topology: three cases striped
     over the two rows, each Z-sharded over its row (8 planes: one slab of
-    8, one empty), one rank of the row counting and writing it, against
-    the JAX Engine on a data×space mesh; and TTA, where the engine ignores
+    8, one empty; 16 for equiunet_assp_evo_ref, whose RefUnet aligns its
+    slabs at 16: again one slab and one empty), one rank of the row
+    counting and writing it, against the JAX Engine on a data×space mesh;
+    and TTA, where the engine ignores
     the space axis as the JAX engine does (the 16 combos over the four
     local ranks), against the port's one-process evaluation (TTA's parallel
     path is held to the JAX engine in tests/test_torch_port_parallel.py).
@@ -307,19 +462,20 @@ def test_engine_data_space_evaluate_matches_reference(spatial_run, mode, tmp_pat
     with the node's meters and rows, each case written once, labels equal
     on ≥ 99.9 % of voxels."""
     n_members, seeds, kw, parallel_mode = ENGINE_MODES[mode]
+    name = ENGINE_MODELS.get(mode, "assp")
     report = JaxReport()
     if kw.get("use_tta"):
         cfg = TrainConfig(**EVAL_CFG)
-        members = [_port_from(v, MODELS["assp"]).eval()
-                   for v in spatial_run["members"][:n_members]]
+        members = [_port_from(v, name).eval()
+                   for v in spatial_run["members"][name][:n_members]]
         want = Engine(cfg, torch.device("cpu"), criterion=make_criterion(cfg)).evaluate(
             members, _Loader(spatial_run["batches"][mode]), 0, save_seg=True,
             output_path=str(tmp_path), report=report, **kw)
     else:
         jcfg = JaxTrainConfig(**EVAL_CFG, wire="dense")
-        jengine = JaxEngine(jcfg, jax_get_model(MODELS["assp"]), jlosses.make_criterion(jcfg),
+        jengine = JaxEngine(jcfg, jax_get_model(MODELS[name]), jlosses.make_criterion(jcfg),
                             mesh=make_mesh(jax.devices()[:4], data=2, space=2))
-        want = jengine.evaluate(spatial_run["members"][:n_members],
+        want = jengine.evaluate(spatial_run["members"][name][:n_members],
                                 _Loader(spatial_run["batches"][mode]), 0, save_seg=True,
                                 output_path=str(tmp_path), report=report, **kw)
     ids = sorted(f"case{s}" for s in seeds)
@@ -339,7 +495,7 @@ def test_engine_data_space_evaluate_matches_reference(spatial_run, mode, tmp_pat
                                        atol=tol, rtol=0, err_msg=pid)
     saved = [r["engine_eval"]["saved"][mode] for r in ranks]
     assert sorted(sum(saved, [])) == ids
-    writers = {0, 2} if mode == "spatial" else {0}
+    writers = {0, 2} if parallel_mode[0] else {0}
     assert {i for i, s in enumerate(saved) if s} <= writers
     out = spatial_run["out"] / "engine" / mode
     for pid in ids:
@@ -358,6 +514,28 @@ def test_slab_bounds(z, n, want):
     assert sp.slab_bounds(z, n) == want
 
 
+@pytest.mark.parametrize("z,n,factor,multiple,want", [
+    (136, 2, 16, 8, [0, 80, 136]), (40, 2, 16, 8, [0, 32, 40]),
+    (40, 4, 16, 8, [0, 16, 32, 40, 40]), (64, 4, 32, 32, [0, 32, 64, 64, 64]),
+    (12, 4, 1, 1, [0, 3, 6, 9, 12])])
+def test_slab_bounds_at_a_model_factor(z, n, factor, multiple, want):
+    """Cut at the model's factor, the last non-empty slab holding a partial
+    block where Z is a multiple of what the model takes but not of the
+    factor (a RefUnet's 136: 80 + 56)."""
+    assert sp.slab_bounds(z, n, factor, multiple) == want
+
+
+@pytest.mark.parametrize("rank,n,depth,want", [
+    (1, 56, 200, [80, 56]), (1, 28, 100, [40, 28]), (1, 7, 25, [10, 7]), (1, 4, 13, [5, 4]),
+    (0, 5, 13, [5, 4]), (1, 112, 400, [160, 112])])
+def test_slab_levels_follow_the_pooling_chain(rank, n, depth, want):
+    """Each level's slabs of the served case's padded Z (136 on 2 ranks at
+    16: 80 + 56) under a RefUnet's ceil-mode pools, found from a slab's
+    planes and its D (200 → 100 → 50 → 25 → 13), and after a ×2 resize."""
+    slab = sp.Slab(None, rank, (0, 80, 136), 200, 16)
+    assert slab.sizes_at(n, depth)[1] == want
+
+
 @pytest.mark.parametrize("z,n", [(36, 2), (20, 4), (0, 2)])
 def test_slab_bounds_raise(z, n):
     """A padded Z off the model's multiple of 8 (where the JAX forward
@@ -366,20 +544,53 @@ def test_slab_bounds_raise(z, n):
         sp.slab_bounds(z, n)
 
 
+class _Wrapped(torch.nn.Module):
+    """A model the slab context does not know, around a covered one."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, x, with_deep=True):
+        return self.inner(x, with_deep)
+
+
 @pytest.mark.parametrize("name,layer", [("att_equiunet", "model"),
                                         ("equiunet_ref", "refunet"),
                                         ("segresnet", "model")])
 def test_uncovered_layer_raises(name, layer):
     """A model holding a layer the slab context does not cover raises
-    before any collective, naming the layer; so does a model in training
-    mode."""
+    before any collective, naming the layer: every --model name is covered,
+    so an unknown wrapper around one (``model``) or a bare
+    ``torch.nn.Conv3d`` in place of its RefUnet's first conv
+    (``refunet.conv0``); so does a model in training mode."""
     model = get_model(_cfg(name, width=4)).eval()
+    if layer == "model":
+        model = _Wrapped(model).eval()
+    else:
+        sp.check_covered(model)
+        getattr(model, layer).conv0 = torch.nn.Conv3d(3, 4, 3, padding=1)
     x = torch.zeros((1, SIDE, SIDE, 16, 4))
     with pytest.raises(ValueError, match=f"layer {layer}"):
         spatial_sharded_forward(model, x, Topology(space=2))
     with pytest.raises(ValueError, match="eval mode"):
         spatial_sharded_forward(get_model(_cfg("equiunet_assp_evo", width=4)), x,
                                 Topology(space=2))
+
+
+@pytest.mark.parametrize("name", sorted(
+    ["equiunet", "equiunet_ref", "att_equiunet", "equiunet_assp_evo", "equiunet_assp_evocor",
+     "equiunet_assp_evo_ref", "modified_unet", "att_unet", "r2unet", "r2attunet",
+     "basic_unet", "segresnet", "segresnetvae", "highresnet", "vnet", "nnunet", "unet_tr"]))
+def test_every_model_name_is_covered(name):
+    """``check_covered`` accepts the model ``get_model`` builds for each of
+    the 17 --model names (every --norm the family takes: BCNorm and
+    BatchNorm too)."""
+    for norm in ("group", "bcn", "batch") if name in ("modified_unet", "r2attunet") else (
+            "group",):
+        cfg = dict(_cfg(name, norm, width=4), patch_size=[32, 32, 32])
+        model = UNETR(**UNETR_SMALL) if name == "unet_tr" else get_model(cfg)
+        sp.check_covered(model)
 
 
 def test_slab_context_raises_with_grad():

@@ -31,8 +31,11 @@ def _ncdhw(x):
 
 
 def _model(cfg, state_dict):
+    """``get_model(cfg)``, or a UNETR of ``cfg["unetr"]``'s size, with the
+    weights."""
     from brats21_tpu_torch.models import get_model
-    model = get_model(cfg)
+    from brats21_tpu_torch.models.unetr import UNETR
+    model = UNETR(**cfg["unetr"]) if "unetr" in cfg else get_model(cfg)
     model.load_state_dict(state_dict, strict=True)
     return model
 
@@ -110,6 +113,9 @@ def engine_eval(job, topo):
     cfg = TrainConfig(**job["train_cfg"])
     engine = Engine(cfg, topo.device, criterion=make_criterion(cfg), topo=topo)
     members = [_model(job["cfg"], sd).eval() for sd in job["members"]]
+    # a mode may name members of another model
+    mode_members = {mode: [_model(cfg, sd).eval() for sd in sds]
+                    for mode, (cfg, sds) in job.get("mode_members", {}).items()}
     out = {"saved": {}}
     save = engine._save_segmentation
 
@@ -130,7 +136,8 @@ def engine_eval(job, topo):
         report = EvaluationReport()
         os.environ.update(env)
         try:
-            meters = engine.evaluate(members[:n_members], _Loader(job["batches"][mode]), 0,
+            meters = engine.evaluate(mode_members.get(mode, members)[:n_members],
+                                     _Loader(job["batches"][mode]), 0,
                                      save_seg=True, output_path=os.path.join(job["out"], mode),
                                      report=report, **kw)
         finally:
@@ -250,8 +257,10 @@ def spatial(job, topo):
         x = torch.from_numpy(case["x"])
         try:
             out["forward"][key] = dict(
-                main=spatial_sharded_forward(model, x, topo, no_amp=True),
                 full=spatial_sharded_forward(model, x, topo, full_outputs=True, no_amp=True))
+            if case.get("main", True):
+                out["forward"][key]["main"] = spatial_sharded_forward(model, x, topo,
+                                                                      no_amp=True)
         except ValueError as e:
             out["forward"][key] = dict(error=str(e))
     if "member" in job:
