@@ -505,8 +505,9 @@ def max_pool3d(x: torch.Tensor, window: int = 2, stride: Optional[int] = None,
     if slab is not None:
         spatial.check_pool(x, window, stride or window, slab, ceil_mode)
         if x.shape[4] == 0:
-            return spatial.on_empty(lambda v: F.max_pool3d(v, window, stride or window), x,
-                                    window)
+            return spatial.on_empty(
+                lambda v: F.max_pool3d(v, window, stride or window, ceil_mode=ceil_mode), x,
+                window)
     return F.max_pool3d(x, window, stride or window, ceil_mode=ceil_mode)
 
 

@@ -156,7 +156,7 @@ def spatial_sharded_forward(model: torch.nn.Module, x: torch.Tensor, topo: Topol
     pad = (-z) % n
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
-    factor = getattr(model, "spatial_factor", spatial.BLOCK)
+    factor = model.spatial_factor
     bounds = spatial.slab_bounds(z + pad, n, factor, getattr(model, "spatial_multiple", factor))
     slab = spatial.Slab(topo.space_group, topo.space_rank, tuple(bounds), x.shape[1], factor)
     part = x[:, :, :, bounds[slab.rank]:bounds[slab.rank + 1]]

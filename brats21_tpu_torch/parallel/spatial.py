@@ -47,8 +47,9 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-#: the default alignment of the slabs: the downsampling factor of the
-#: models that pool three times (a model's ``spatial_factor`` overrides it)
+#: :func:`slab_bounds`' default alignment: the downsampling factor of the
+#: models that pool three times (the Z-sharded forward cuts at each model's
+#: own ``spatial_factor``)
 BLOCK = 8
 
 
@@ -114,7 +115,7 @@ class Slab:
     rank: int
     bounds: Tuple[int, ...]
     depth: int
-    factor: int = BLOCK
+    factor: int
 
     def sizes_at(self, n: int, level_depth: int) -> Tuple[int, List[int]]:
         """(this slab's first plane, every slab's size) at the level where

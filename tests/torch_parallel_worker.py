@@ -244,7 +244,7 @@ def spatial(job, topo):
         out["conv"][key] = sp.gather_planes(y, group, 2, [per] * n)
     for key, (module, x) in job["layers"].items():
         bounds = sp.slab_bounds(x.shape[4], n)
-        slab = sp.Slab(group, r, tuple(bounds), x.shape[2])
+        slab = sp.Slab(group, r, tuple(bounds), x.shape[2], sp.BLOCK)
         mine = torch.from_numpy(x)[..., bounds[r]:bounds[r + 1]].contiguous(
             memory_format=torch.channels_last_3d)
         with torch.no_grad(), sp.sharded(slab):
