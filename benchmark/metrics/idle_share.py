@@ -1,0 +1,8 @@
+"""idle_share.<serve|train>: the share of the traced window in which no
+kernel ran on the card, in percent."""
+
+
+def read(ctx, name):
+    if ctx.trace is None or ctx.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
