@@ -41,6 +41,12 @@ thread. Every card launch stays on the main thread and its current stream
 is the interval between collects, as in the JAX package (the save runs
 behind it), ``data_time`` the wait for the prep stage.
 
+While a profiler runs, the stages record spans (``utils/profiling.py``)
+with the case's patient id: ``eval.wait_prep``, ``eval.case`` (holding
+``eval.put``, ``eval.member``, post-processing's ``post.*`` and
+``eval.seal``) and ``eval.collect`` on the main thread; ``finish.save`` on
+the finish thread.
+
 With several local ranks under ``torchrun`` (``parallel/mesh.py``) the
 node's ranks share the evaluation as the JAX package's local mesh does
 (engine.py:840-900): the TTA combos or the sliding windows of each case
@@ -93,6 +99,7 @@ from ..parallel.distributed import (LocalGroup, gather_members, sharded_sliding_
 from ..parallel.mesh import Topology
 from ..utils.meter import AverageMeter, ProgressMeter
 from ..utils.metrics import compute_case_metrics
+from ..utils.profiling import annotate
 from ..utils.reporting import EvaluationReport, TensorBoardLogger
 from .losses import LossFn, deep_supervision_loss
 from .train_state import TrainState, TrainStep, swa_update
@@ -529,42 +536,44 @@ class Engine:
         With ``spatial`` (every rank of the space row calling) the plain
         forward runs Z-sharded over the row, with every head when there is
         a target (engine.py:410-429)."""
-        cfg = self.cfg
-        x = img.to(torch.float32 if cfg.no_amp else torch.bfloat16)
-        criterion = self.criterion if target is not None else None
-        if target is not None and criterion is None:
-            raise ValueError("evaluation with a target needs the engine's criterion")
-        if spatial:
-            out = spatial_sharded_forward(model, x, self.topo, full_outputs=target is not None,
-                                          no_amp=cfg.no_amp)
+        with annotate("eval.member"):
+            cfg = self.cfg
+            x = img.to(torch.float32 if cfg.no_amp else torch.bfloat16)
+            criterion = self.criterion if target is not None else None
+            if target is not None and criterion is None:
+                raise ValueError("evaluation with a target needs the engine's criterion")
+            if spatial:
+                out = spatial_sharded_forward(model, x, self.topo,
+                                              full_outputs=target is not None,
+                                              no_amp=cfg.no_amp)
+                loss = (deep_supervision_loss(criterion, _ncdhw(out), target)
+                        if criterion is not None
+                        else torch.zeros((), dtype=torch.float32, device=x.device))
+                return torch.sigmoid(main_head(out).float()), loss
+            if sliding:
+                roi = tuple(cfg.sliding_window_size)
+
+                def predictor(w):
+                    return forward_channels_last(model, w)
+
+                def apply(v):
+                    if local is not None:
+                        return sharded_sliding_window(v, roi, predictor, local, cfg.num_classes)
+                    return sliding_window_inference(v, roi, predictor, sw_batch_size=2)
+            else:
+                def apply(v):
+                    return forward_channels_last(model, v, with_deep=target is not None)
+            if use_tta and local is not None and not sliding:
+                return sharded_tta_probs(apply, x, local, criterion=criterion, target=target,
+                                         num_classes=cfg.num_classes)
+            if use_tta:
+                return tta_mean_probs(apply, x, criterion=criterion, target=target,
+                                      num_classes=cfg.num_classes)
+            out = apply(x)
             loss = (deep_supervision_loss(criterion, _ncdhw(out), target)
                     if criterion is not None
                     else torch.zeros((), dtype=torch.float32, device=x.device))
             return torch.sigmoid(main_head(out).float()), loss
-        if sliding:
-            roi = tuple(cfg.sliding_window_size)
-
-            def predictor(w):
-                return forward_channels_last(model, w)
-
-            def apply(v):
-                if local is not None:
-                    return sharded_sliding_window(v, roi, predictor, local, cfg.num_classes)
-                return sliding_window_inference(v, roi, predictor, sw_batch_size=2)
-        else:
-            def apply(v):
-                return forward_channels_last(model, v, with_deep=target is not None)
-        if use_tta and local is not None and not sliding:
-            return sharded_tta_probs(apply, x, local, criterion=criterion, target=target,
-                                     num_classes=cfg.num_classes)
-        if use_tta:
-            return tta_mean_probs(apply, x, criterion=criterion, target=target,
-                                  num_classes=cfg.num_classes)
-        out = apply(x)
-        loss = (deep_supervision_loss(criterion, _ncdhw(out), target)
-                if criterion is not None
-                else torch.zeros((), dtype=torch.float32, device=x.device))
-        return torch.sigmoid(main_head(out).float()), loss
 
     # ------------------------------------------------------------------ wire
 
@@ -603,12 +612,14 @@ class Engine:
 
     def _put_case(self, shape: Tuple[int, ...], payload: Tuple) -> torch.Tensor:
         """A case's fp16 [1, X, Y, Z, C] on the card from its wire payload:
-        the dense copy, or the sparse format unpacked on the card, exact."""
-        if payload[0] == "dense":
-            return self.to_device(payload[1])[None]
-        _, bits, vals = payload
-        return wire.unpack_volume_device(self.to_device(bits), self.to_device(vals),
-                                         tuple(shape[:3]))
+        the dense copy, or the sparse format unpacked on the card, exact.
+        Span ``eval.put``."""
+        with annotate("eval.put"):
+            if payload[0] == "dense":
+                return self.to_device(payload[1])[None]
+            _, bits, vals = payload
+            return wire.unpack_volume_device(self.to_device(bits), self.to_device(vals),
+                                             tuple(shape[:3]))
 
     @staticmethod
     def _seal(fused: torch.Tensor, img: torch.Tensor, pack: bool
@@ -674,59 +685,64 @@ class Engine:
         (``engine.py:866-894``). With ``spatial`` each member's forward is
         Z-sharded over this rank's space row. The ops' own host reads
         (connected components' convergence test, STAPLE's EM) still wait
-        for the card here."""
+        for the card here. Spans: ``eval.case`` around it all, ``eval.seal``
+        around the seal and the copies out."""
         post_kwargs = post_kwargs or {}
-        img = self._put_case(case["shape"], case["wire"])
-        target = target_cl = None
-        if case["tgt_padded"] is not None:
-            target_cl = self.to_device(case["tgt_padded"])[None].float()
-            target = target_cl.permute(0, 4, 1, 2, 3)
-            if case["dm"] is not None:
-                target = (target, self.to_device(case["dm"])[None].permute(0, 4, 1, 2, 3))
-        if member_stripe:
-            group, rank, size = local
-            mine = list(range(rank, len(members), size))
-            results = [self.member_probs(members[m], img, use_tta, sliding, target)
-                       for m in mine]
-            shape = (1, *img.shape[1:4], self.cfg.num_classes)
-            per_member = gather_members(len(members), mine, results, shape, self.device,
-                                        local)
-        else:
-            per_member = (self.member_probs(model, img, use_tta, sliding, target, local,
-                                            spatial)
-                          for model in members)
-        probs_sum, loss_sum, posts = None, None, []
-        for probs, loss in per_member:
-            loss_sum = loss if loss_sum is None else loss_sum + loss
-            if perform_staple:
-                posts.append(post_process(probs, **post_kwargs))
+        with annotate("eval.case", case=case["batch"]["patient_id"][0]):
+            img = self._put_case(case["shape"], case["wire"])
+            target = target_cl = None
+            if case["tgt_padded"] is not None:
+                target_cl = self.to_device(case["tgt_padded"])[None].float()
+                target = target_cl.permute(0, 4, 1, 2, 3)
+                if case["dm"] is not None:
+                    target = (target, self.to_device(case["dm"])[None].permute(0, 4, 1, 2, 3))
+            if member_stripe:
+                group, rank, size = local
+                mine = list(range(rank, len(members), size))
+                results = [self.member_probs(members[m], img, use_tta, sliding, target)
+                           for m in mine]
+                shape = (1, *img.shape[1:4], self.cfg.num_classes)
+                per_member = gather_members(len(members), mine, results, shape, self.device,
+                                            local)
             else:
-                probs_sum = probs if probs_sum is None else probs_sum + probs
-        if perform_staple:
-            fused = staple_multichannel(torch.stack(posts), threshold_value=staple_threshold)
-        else:
-            fused = post_process(probs_sum / len(members), **post_kwargs)
-        fused, sealed = self._seal(fused, img, self._resolve_wire() == "sparse")
-        entry = dict(case=case, fused=fused, target=target_cl,
-                     sealed=self._copy_out(sealed),
-                     loss=self._copy_out(loss_sum) if target is not None else None,
-                     ready=None)
-        if self.device.type == "cuda":
-            entry["ready"] = torch.cuda.Event()
-            entry["ready"].record(torch.cuda.current_stream(self.device))
-        return entry
+                per_member = (self.member_probs(model, img, use_tta, sliding, target, local,
+                                                spatial)
+                              for model in members)
+            probs_sum, loss_sum, posts = None, None, []
+            for probs, loss in per_member:
+                loss_sum = loss if loss_sum is None else loss_sum + loss
+                if perform_staple:
+                    posts.append(post_process(probs, **post_kwargs))
+                else:
+                    probs_sum = probs if probs_sum is None else probs_sum + probs
+            if perform_staple:
+                fused = staple_multichannel(torch.stack(posts), threshold_value=staple_threshold)
+            else:
+                fused = post_process(probs_sum / len(members), **post_kwargs)
+            with annotate("eval.seal"):
+                fused, sealed = self._seal(fused, img, self._resolve_wire() == "sparse")
+                entry = dict(case=case, fused=fused, target=target_cl,
+                             sealed=self._copy_out(sealed),
+                             loss=self._copy_out(loss_sum) if target is not None else None,
+                             ready=None)
+            if self.device.type == "cuda":
+                entry["ready"] = torch.cuda.Event()
+                entry["ready"].record(torch.cuda.current_stream(self.device))
+            return entry
 
     def _collect(self, entry: Dict[str, Any], n_members: int
                  ) -> Tuple[np.ndarray, Optional[float]]:
         """(the fused prediction as host numpy, the members' mean loss or
-        None) of an enqueued case, once its copies have landed."""
-        if entry["ready"] is not None:
-            entry["ready"].synchronize()
-        sealed = entry["sealed"].numpy()
-        fused_np = (wire.unpack_bits(sealed, tuple(entry["fused"].shape))
-                    if sealed.dtype == np.uint8 else sealed)
-        loss = entry["loss"]
-        return fused_np, (float(loss) / n_members if loss is not None else None)
+        None) of an enqueued case, once its copies have landed. Span
+        ``eval.collect``."""
+        with annotate("eval.collect", case=entry["case"]["batch"]["patient_id"][0]):
+            if entry["ready"] is not None:
+                entry["ready"].synchronize()
+            sealed = entry["sealed"].numpy()
+            fused_np = (wire.unpack_bits(sealed, tuple(entry["fused"].shape))
+                        if sealed.dtype == np.uint8 else sealed)
+            loss = entry["loss"]
+            return fused_np, (float(loss) / n_members if loss is not None else None)
 
     @torch.inference_mode()
     def evaluate(self, members: List[nn.Module], loader: Iterable[Dict[str, Any]],
@@ -838,7 +854,8 @@ class Engine:
             while True:
                 t_wait = time.time()
                 try:
-                    case = next(prep_stage)
+                    with annotate("eval.wait_prep"):
+                        case = next(prep_stage)
                 except StopIteration:
                     break
                 data_time.update(time.time() - t_wait)
@@ -942,21 +959,22 @@ class Engine:
                            p_b: np.ndarray, p_a: np.ndarray, output_path: str,
                            suffix: Optional[str] = None) -> None:
         """shape_to_original → BraTS labels → pad_back → NIfTI uint8
-        (engine.py:1179-1197, files.py:233-253)."""
-        out = T.shape_to_original(fused, p_b, p_a)
-        labels = T.change_label_3_to_4(T.multichannel_to_brats_labels(out))
-        labels = T.pad_back_to_shape_before_compose(
-            labels, np.asarray(batch["foreground_start_coord"][0]),
-            np.asarray(batch["foreground_end_coord"][0]),
-            np.asarray(batch["original_shape"][0]))
-        pid = batch["patient_id"][0]
-        os.makedirs(output_path, exist_ok=True)
-        fname = f"{pid}_{suffix}.nii.gz" if suffix else f"{pid}.nii.gz"
-        affine = np.asarray(batch.get("affine"))
-        if affine.ndim == 3:
-            affine = affine[0]
-        write_nifti(os.path.join(output_path, fname), labels.astype(np.uint8), affine)
-        logger.debug("saved segmentation %s", fname)
+        (engine.py:1179-1197, files.py:233-253). Span ``finish.save``."""
+        with annotate("finish.save", case=batch["patient_id"][0]):
+            out = T.shape_to_original(fused, p_b, p_a)
+            labels = T.change_label_3_to_4(T.multichannel_to_brats_labels(out))
+            labels = T.pad_back_to_shape_before_compose(
+                labels, np.asarray(batch["foreground_start_coord"][0]),
+                np.asarray(batch["foreground_end_coord"][0]),
+                np.asarray(batch["original_shape"][0]))
+            pid = batch["patient_id"][0]
+            os.makedirs(output_path, exist_ok=True)
+            fname = f"{pid}_{suffix}.nii.gz" if suffix else f"{pid}.nii.gz"
+            affine = np.asarray(batch.get("affine"))
+            if affine.ndim == 3:
+                affine = affine[0]
+            write_nifti(os.path.join(output_path, fname), labels.astype(np.uint8), affine)
+            logger.debug("saved segmentation %s", fname)
 
 
 def _homogeneous(members: List[nn.Module]) -> bool:

@@ -41,7 +41,8 @@ import torch.nn.functional as F
 
 from . import load_library
 
-#: launches of the CUDA kernel since the last reset (read by chip_smoke.py)
+#: launches of the CUDA kernel since the last reset (read by chip_smoke.py and by the
+#: benchmark's harness, which counts them over its window)
 launches = 0
 
 SOURCE = "conv3x3x3.cu"

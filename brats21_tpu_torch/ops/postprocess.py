@@ -14,6 +14,11 @@ multichannel→BraTS labels → 3→4 → KeepLargestConnectedComponent(threshol
   batched over every axial slice. Ties resolve to the lowest index, as in
   the JAX package, so the two agree exactly.
 * scipy host twins of each step back the tests.
+
+Spans (``utils/profiling.py``, recorded while a profiler runs):
+``post.process`` around the chain, ``post.components`` and
+``post.replace`` around its two loops, each with ``reads``, the host reads
+that make the thread wait for the card.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from scipy import ndimage
+
+from ..utils.profiling import annotate
 
 _INF = 3.0e38   # background label / unreached cost, as the JAX package's
 
@@ -77,30 +84,43 @@ def label_components(mask: torch.Tensor) -> torch.Tensor:
     """Connected-component labels of a 3D bool mask (26-connectivity, as
     skimage ``morphology.label``). Background = 0; labels are distinct
     positive ints (the component's smallest flat index + 1)."""
+    return _label_components(mask)[0]
+
+
+def _label_components(mask: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(:func:`label_components`, its sweeps): each sweep ends in a
+    ``torch.equal``, a host read."""
     n = mask.numel()
     # labels are exact in fp32 below 2**24 voxels
     dtype = torch.float32 if n < 2 ** 24 else torch.float64
     ids = torch.arange(1, n + 1, dtype=dtype, device=mask.device).reshape(mask.shape)
     labels = torch.where(mask, ids, _INF)
+    sweeps = 0
     while True:
         new = torch.where(mask, torch.minimum(labels, _min_pool3(labels)), _INF)
+        sweeps += 1
         if torch.equal(new, labels):
             break
         labels = new
-    return torch.where(mask, labels, 0.0).long()
+    return torch.where(mask, labels, 0.0).long(), sweeps
 
 
 def filter_components(volume: torch.Tensor, threshold: float) -> torch.Tensor:
     """get_largest_component with a size threshold (transforms.py:579-600):
     zero out components of size ≤ threshold. ``volume`` is a label map;
-    any nonzero voxel belongs to the foreground."""
-    mask = volume != 0
-    flat = label_components(mask).reshape(-1)
-    sizes = torch.bincount(flat, weights=mask.reshape(-1).float(),
-                           minlength=volume.numel() + 1)
-    sizes[0] = 0.0
-    keep = (sizes[flat] > threshold).reshape(volume.shape)
-    return torch.where(keep & mask, volume, torch.zeros_like(volume))
+    any nonzero voxel belongs to the foreground. Span ``post.components``,
+    ``reads`` the host reads of the sweeps and of ``bincount``."""
+    with annotate("post.components") as span:
+        mask = volume != 0
+        labels, sweeps = _label_components(mask)
+        span.count("reads", sweeps)
+        flat = labels.reshape(-1)
+        sizes = torch.bincount(flat, weights=mask.reshape(-1).float(),
+                               minlength=volume.numel() + 1)
+        span.count("reads")     # bincount reads its input's maximum on the host
+        sizes[0] = 0.0
+        keep = (sizes[flat] > threshold).reshape(volume.shape)
+        return torch.where(keep & mask, volume, torch.zeros_like(volume))
 
 
 # ---------------------------------------------------------------------------
@@ -143,19 +163,22 @@ def replace_small_values_axial(label_map: torch.Tensor,
     """ReplaceWithClosestValue (transforms.py:233-268, 627-647): label values
     whose total voxel count ≤ thresh are re-assigned, per axial slice
     (axis 2), to the nearest surviving label. label_map: [X, Y, Z] float
-    labels {0,1,2,4}."""
-    replace = torch.zeros(label_map.shape, dtype=torch.bool, device=label_map.device)
-    for v in (0.0, 1.0, 2.0, 3.0, 4.0):
-        hit = label_map == v
-        count = int(hit.sum())
-        if 0 < count <= thresh:
-            replace |= hit
-    if not bool(replace.any()):
-        return label_map
-    moved_l = label_map.permute(2, 0, 1)
-    moved_r = replace.permute(2, 0, 1)
-    nearest = nearest_feature_2d(~moved_r, moved_l)
-    return torch.where(moved_r, nearest, moved_l).permute(1, 2, 0)
+    labels {0,1,2,4}. Span ``post.replace``, ``reads`` its host reads."""
+    with annotate("post.replace") as span:
+        replace = torch.zeros(label_map.shape, dtype=torch.bool, device=label_map.device)
+        for v in (0.0, 1.0, 2.0, 3.0, 4.0):
+            hit = label_map == v
+            count = int(hit.sum())
+            span.count("reads")
+            if 0 < count <= thresh:
+                replace |= hit
+        span.count("reads")
+        if not bool(replace.any()):
+            return label_map
+        moved_l = label_map.permute(2, 0, 1)
+        moved_r = replace.permute(2, 0, 1)
+        nearest = nearest_feature_2d(~moved_r, moved_l)
+        return torch.where(moved_r, nearest, moved_l).permute(1, 2, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -217,13 +240,14 @@ def post_process(probs: torch.Tensor, logit_thresh: float = 0.5,
                  replace_value: bool = False, replace_value_threshold: int = 300,
                  ) -> torch.Tensor:
     """probs [1, X, Y, Z, 3] → binarized multichannel [1, X, Y, Z, 3] after
-    the configured cleanup (one volume at a time)."""
-    binary = threshold_probs(probs, logit_thresh)
-    if not (cleaning_areas or replace_value):
-        return binary
-    labels = change_label_3_to_4(multichannel_to_brats(binary[0]))
-    if cleaning_areas:
-        labels = filter_components(labels, float(cleaning_areas_threshold))
-    if replace_value:
-        labels = replace_small_values_axial(labels, float(replace_value_threshold))
-    return brats_to_multichannel(labels)[None]
+    the configured cleanup (one volume at a time). Span ``post.process``."""
+    with annotate("post.process"):
+        binary = threshold_probs(probs, logit_thresh)
+        if not (cleaning_areas or replace_value):
+            return binary
+        labels = change_label_3_to_4(multichannel_to_brats(binary[0]))
+        if cleaning_areas:
+            labels = filter_components(labels, float(cleaning_areas_threshold))
+        if replace_value:
+            labels = replace_small_values_axial(labels, float(replace_value_threshold))
+        return brats_to_multichannel(labels)[None]

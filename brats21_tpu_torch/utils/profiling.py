@@ -1,9 +1,17 @@
 """Profiling and tracing hooks (JAX ``brats21_tpu/utils/profiling.py``) on
-``torch.profiler`` and NVTX.
+``torch.profiler``.
 
-* :func:`annotate` — a named range around a pipeline phase: a
-  ``record_function`` scope in the profiler's trace, and an NVTX range when
-  the work runs on a CUDA device.
+* :func:`annotate` — the port's one span recorder: a named span around a
+  phase of the pipeline, recorded while a ``torch.profiler`` runs in the
+  process and otherwise a flag check and nothing else. Each :class:`Span`
+  holds its id, the id of the span open around it on its thread (the one
+  that caused it), its case (a patient id, inherited from that parent),
+  its thread, its name, its start and end on ``time.time_ns`` (the clock
+  onto which a device trace's kernels are put) and its counts. Spans go
+  into a bounded buffer that :func:`spans` copies. Inside :func:`capture`
+  each span is also a ``record_function`` range in the Chrome trace; under
+  a profiler that the program did not start it puts nothing into that
+  profiler's trace.
 * :func:`capture` — a trace of the enclosed block (CPU ops, and the card's
   kernels and copies) written as a Chrome trace into a directory.
 * :func:`trace_server` / :func:`maybe_enable_from_env`
@@ -24,16 +32,19 @@ counterpart.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import tempfile
 import threading
 import time
-from dataclasses import dataclass
+from collections import deque
+from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, HTTPServer
-from typing import Iterator, Optional
+from typing import Deque, Dict, Iterator, List, Optional
 from urllib.parse import parse_qs, urlparse
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from .. import get_logger
 
@@ -43,6 +54,57 @@ _server: Optional["_TraceServer"] = None
 _server_lock = threading.Lock()
 # torch's profiler runs one window at a time in a process
 _capture_lock = threading.Lock()
+# true while capture() runs: only then does a span enter a record_function
+_capturing = False
+
+#: the spans kept: the newest this many, older ones dropped
+SPANS_MAX = 1 << 16
+# appended and copied by single deque calls, each atomic under the GIL: no
+# lock, so that no span waits on another thread's
+_spans: Deque["Span"] = deque(maxlen=SPANS_MAX)
+_span_ids = itertools.count(1)
+_open = threading.local()       # .stack: this thread's open spans, innermost last
+
+
+def _profiler_running() -> bool:
+    """Whether a ``torch.profiler`` runs anywhere in the process (the
+    profiler's process-wide flag)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+@dataclass(eq=False, slots=True)
+class Span:
+    """One recorded span; ``start_ns`` and ``end_ns`` on ``time.time_ns``."""
+    id: int
+    parent: Optional[int]
+    case: Optional[str]
+    thread: str
+    name: str
+    start_ns: int
+    end_ns: int = 0
+    counts: Dict[str, int] = field(default_factory=dict)
+
+    def count(self, key: str, n: int = 1) -> None:
+        """Add ``n`` to the span's count ``key``."""
+        self.counts[key] = self.counts.get(key, 0) + n
+
+
+class _NoSpan:
+    """What :func:`annotate` gives when nothing is recorded: a context
+    manager that yields itself, and whose ``count`` does nothing."""
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        return False
+
+    def count(self, key: str, n: int = 1) -> None:
+        pass
+
+
+_NO_SPAN = _NoSpan()
 
 
 @dataclass
@@ -66,19 +128,54 @@ def _profile() -> torch.profiler.profile:
     return torch.profiler.profile(activities=activities, experimental_config=config)
 
 
-@contextlib.contextmanager
-def annotate(name: str, device: Optional[torch.device] = None) -> Iterator[None]:
-    """A named range in the profiler's trace, and an NVTX range when
-    ``device`` is a CUDA device."""
-    nvtx = device is not None and torch.device(device).type == "cuda"
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+def annotate(name: str, case: Optional[str] = None, **counts: int):
+    """``with annotate(name, case=None, **counts) as span:`` a span around
+    the block, recorded while a ``torch.profiler`` runs in the process; the
+    block may add counts (``span.count("reads", n)``). ``case`` defaults to
+    the enclosing span's. With no profiler running it costs a flag check
+    and yields a span whose ``count`` does nothing."""
+    if not _profiler_running():
+        return _NO_SPAN
+    return _Recording(name, case, counts)
+
+
+class _Recording:
+    """A span being recorded: on this thread's stack of open spans while
+    the block runs, into the buffer when it ends."""
+
+    __slots__ = ("span", "_range")
+
+    def __init__(self, name: str, case: Optional[str], counts: Dict[str, int]):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        parent = stack[-1] if stack else None
+        if case is None and parent is not None:
+            case = parent.case
+        self.span = Span(next(_span_ids), parent.id if parent is not None else None, case,
+                         threading.current_thread().name, name, 0, counts=counts)
+        self._range = torch.profiler.record_function(name) if _capturing else None
+
+    def __enter__(self) -> Span:
+        _open.stack.append(self.span)
+        if self._range is not None:
+            self._range.__enter__()
+        self.span.start_ns = time.time_ns()
+        return self.span
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        self.span.end_ns = time.time_ns()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        _open.stack.pop()
+        _spans.append(self.span)
+        return False
+
+
+def spans(since_ns: int = 0) -> List[Span]:
+    """A copy of the recorded spans that started at ``since_ns`` or later
+    (``time.time_ns``), in the order they ended."""
+    return [s for s in _spans.copy() if s.start_ns >= since_ns]
 
 
 @contextlib.contextmanager
@@ -86,13 +183,18 @@ def capture(log_dir: str) -> Iterator[Trace]:
     """Trace the enclosed block into ``log_dir`` (a Chrome trace,
     ``trace_<pid>_<ms>.json``, whose path the yielded :class:`Trace` holds
     once the block has ended)."""
+    global _capturing
     os.makedirs(log_dir, exist_ok=True)
     if not _capture_lock.acquire(blocking=False):
         raise RuntimeError("a profiler capture is already running in this process")
     try:
         trace = Trace(_profile())
         with trace.profile:
-            yield trace
+            _capturing = True
+            try:
+                yield trace
+            finally:
+                _capturing = False
         path = os.path.join(log_dir, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json")
         trace.profile.export_chrome_trace(path)
         trace.path = path

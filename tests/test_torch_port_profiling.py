@@ -1,11 +1,17 @@
 """The port's ``utils/profiling.py`` and ``utils/misc.py`` on the CPU:
-the host allocator tuning and its opt-out, ``annotate`` and ``capture``
-writing a Chrome trace, the trace server that stands in for JAX's profiler
-server (idempotent, one capture answered), and ``misc`` against the JAX
+the host allocator tuning and its opt-out, the span recorder (nothing
+recorded and no ``record_function`` entered without a profiler; parent,
+case, thread and counts on ``time.time_ns`` under one; parentage on
+another thread and the bounded buffer with recording switched on as a
+profiler switches it), ``annotate`` and ``capture`` writing a Chrome
+trace, the trace server that stands in for JAX's profiler server
+(idempotent, one capture answered), and ``misc`` against the JAX
 package's."""
 
 import json
 import os
+import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -26,6 +32,94 @@ def test_tune_host_allocator_and_opt_out(monkeypatch):
     monkeypatch.setenv("BRATS21_NO_MALLOC_TUNE", "1")
     assert profiling.tune_host_allocator() is False
     assert jax_profiling.tune_host_allocator() is False
+
+
+def _cpu_profiler():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+@pytest.fixture
+def ranges(monkeypatch):
+    """The names of the ``record_function`` ranges entered."""
+    entered = []
+    record_function = torch.profiler.record_function
+
+    def counted(name, *a, **k):
+        entered.append(name)
+        return record_function(name, *a, **k)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counted)
+    return entered
+
+
+def test_annotate_records_nothing_without_a_profiler(ranges):
+    t0 = time.time_ns()
+    with profiling.annotate("idle", case="c0", reads=1) as span:
+        span.count("reads", 3)
+        with profiling.annotate("inner"):
+            pass
+    assert profiling.spans(t0) == [] and ranges == []
+
+
+def test_spans_under_a_profiler(ranges):
+    t0 = time.time_ns()
+    with _cpu_profiler():
+        with profiling.annotate("outer", case="BraTS2021_00007", reads=1) as outer:
+            outer.count("reads", 2)
+            with profiling.annotate("inner") as inner:
+                inner.count("forwards")
+                inner.count("forwards")
+        with profiling.annotate("elsewhere", case="BraTS2021_00008"):
+            pass
+    t1 = time.time_ns()
+    got = {s.name: s for s in profiling.spans(t0)}
+    assert set(got) == {"outer", "inner", "elsewhere"}
+    o, i, e = got["outer"], got["inner"], got["elsewhere"]
+    assert (o.parent, o.case, o.thread, o.counts) == (None, "BraTS2021_00007", "MainThread",
+                                                      {"reads": 3})
+    assert (i.parent, i.case, i.thread, i.counts) == (o.id, o.case, "MainThread",
+                                                      {"forwards": 2})
+    assert e.parent is None and e.case == "BraTS2021_00008" and len({o.id, i.id, e.id}) == 3
+    assert t0 <= o.start_ns <= i.start_ns <= i.end_ns <= o.end_ns <= e.start_ns <= e.end_ns <= t1
+    # under a profiler the program did not start, no range enters its trace
+    assert ranges == []
+
+
+def _recording(monkeypatch):
+    """Record as under a running profiler (what ``torch.profiler`` sets),
+    without starting one."""
+    monkeypatch.setattr(profiling, "_profiler_running", lambda: True)
+
+
+def test_a_span_on_another_thread_has_its_own_parentage(monkeypatch):
+    t0 = time.time_ns()
+
+    def work():
+        with profiling.annotate("worker.case", case="c1"):
+            with profiling.annotate("worker.step"):
+                pass
+
+    _recording(monkeypatch)
+    with profiling.annotate("main.case", case="c0"):
+        t = threading.Thread(target=work, name="spans-worker")
+        t.start()
+        t.join(timeout=10)
+    assert not t.is_alive()
+    got = {s.name: s for s in profiling.spans(t0)}
+    assert got["worker.case"].parent is None and got["worker.case"].thread == "spans-worker"
+    assert got["worker.step"].parent == got["worker.case"].id
+    assert got["worker.step"].case == "c1"
+
+
+def test_the_buffer_keeps_the_newest_spans(monkeypatch):
+    n = profiling.SPANS_MAX + 10
+    _recording(monkeypatch)
+    for k in range(n):
+        with profiling.annotate("s", k=k):
+            pass
+    got = profiling.spans()
+    assert len(got) == profiling.SPANS_MAX
+    assert [s.counts["k"] for s in got[:1] + got[-1:]] == [10, n - 1]
 
 
 def test_annotate_and_capture_write_a_trace(tmp_path):
