@@ -13,7 +13,7 @@ refinement variant (``equiunet_assp_evo_ref``) adds ``refunet.*`` in the
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +21,7 @@ from torch import nn
 
 from ..ops.kernels.evonorm import (EvoNormS0Function, evonorm_s0_apply, evonorm_s0_stats,
                                    inv_std)
+from ..ops.kernels.glue import se_gate_pool, upsample_cat
 from ..parallel import spatial
 from .equiunet import DeepHead, RefUnet
 from .layers import (Conv3d, Dropout, from_kernel_layout, global_avg_pool,
@@ -161,12 +162,15 @@ class ResidualSELayer(nn.Module):
         self.fc = nn.Sequential(nn.Linear(channels, channels // r), nn.ReLU(),
                                 nn.Linear(channels // r, channels), nn.Sigmoid())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def gate(self, x: torch.Tensor) -> torch.Tensor:
+        """s = sigmoid(fc2(relu(fc1(gap(x))))), ``[B, C]`` in x's dtype."""
         fc1, fc2 = self.fc[0], self.fc[2]
         h = torch.relu(F.linear(global_avg_pool(x), fc1.weight.to(x.dtype),
                                 fc1.bias.to(x.dtype)))
-        s = torch.sigmoid(F.linear(h, fc2.weight.to(x.dtype), fc2.bias.to(x.dtype)))
-        return x + x * s[:, :, None, None, None]
+        return torch.sigmoid(F.linear(h, fc2.weight.to(x.dtype), fc2.bias.to(x.dtype)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + x * self.gate(x)[:, :, None, None, None]
 
 
 class ConvEvoBlockCorrected(nn.Module):
@@ -184,6 +188,16 @@ class ConvEvoBlockCorrected(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv_conv_se(x)
+
+    def gated(self, x: torch.Tensor, pool: bool
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The block's output and, with ``pool``, its MaxAvgPool (else None),
+        the ResidualSE gate and the pool in one :func:`se_gate_pool` pass."""
+        *body, se = self.conv_conv_se
+        for layer in body:
+            x = layer(x)
+        y, pooled = se_gate_pool(to_kernel_layout(x), se.gate(x), pool)
+        return from_kernel_layout(y), None if pooled is None else from_kernel_layout(pooled)
 
 
 class SimpleASPPEVO(nn.Module):
@@ -207,6 +221,35 @@ class SimpleASPPEVO(nn.Module):
 
 
 ModelOutput = Union[torch.Tensor, Tuple[torch.Tensor, List[torch.Tensor]]]
+
+
+def glue_route() -> bool:
+    """Whether a forward takes the glue passes between its blocks
+    (:mod:`..ops.kernels.glue`; CPU tensors take their plain versions):
+    with no autograd (``evaluate`` serves under ``inference_mode``) and
+    outside a slab. Training and the Z-sharded forward keep the
+    composition of PyTorch calls, whose outputs the passes equal."""
+    return not torch.is_grad_enabled() and spatial.active() is None
+
+
+def _encode(block: ConvEvoBlockCorrected, x: torch.Tensor, glue: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An encoder block's output and the next level's input, its
+    MaxAvgPool."""
+    if glue:
+        return block.gated(x, pool=True)
+    y = block(x)
+    return y, max_avg_pool(y)
+
+
+def _decode(block: ConvEvoBlockCorrected, low: torch.Tensor, skip: torch.Tensor,
+            glue: bool) -> torch.Tensor:
+    """A decoder block on ``[skip, low upsampled ×2]`` on channels."""
+    if glue:
+        return block.gated(from_kernel_layout(upsample_cat(to_kernel_layout(skip),
+                                                           to_kernel_layout(low))),
+                           pool=False)[0]
+    return block(torch.cat([skip, upsample(low)], dim=1))
 
 
 class EquiUnetASSPEvo(nn.Module):
@@ -258,18 +301,16 @@ class EquiUnetASSPEvo(nn.Module):
             self.spatial_factor, self.spatial_multiple = RefUnet.spatial_factor, 8
 
     def forward(self, x: torch.Tensor, with_deep: bool = True) -> ModelOutput:
-        down1 = self.encoder1(x)
-        down2 = self.encoder2(max_avg_pool(down1))
-        down3 = self.encoder3(max_avg_pool(down2))
-        down4 = self.encoder4(max_avg_pool(down3))
+        glue = glue_route()
+        down1, x = _encode(self.encoder1, x, glue)
+        down2, x = _encode(self.encoder2, x, glue)
+        down3, x = _encode(self.encoder3, x, glue)
+        down4 = self.encoder4.gated(x, pool=False)[0] if glue else self.encoder4(x)
         assp = self.aspp(down4)
 
-        up3 = upsample(self.upconv3(assp))
-        up3 = self.decoder3(torch.cat([self.bridge3(down3), up3], dim=1))
-        up2 = upsample(self.upconv2(up3))
-        up2 = self.decoder2(torch.cat([self.bridge2(down2), up2], dim=1))
-        up1 = upsample(self.upconv1(up2))
-        up1 = self.decoder1(torch.cat([self.bridge1(down1), up1], dim=1))
+        up3 = _decode(self.decoder3, self.upconv3(assp), self.bridge3(down3), glue)
+        up2 = _decode(self.decoder2, self.upconv2(up3), self.bridge2(down2), glue)
+        up1 = _decode(self.decoder1, self.upconv1(up2), self.bridge1(down1), glue)
 
         out = self.out_conv(up1)
         if self.refunet is not None:

@@ -114,7 +114,7 @@ def load_library(source: str) -> ctypes.CDLL:
 
 
 #: the CUDA sources of the kernels, one library each
-SOURCES = ("conv3x3x3.cu", "evonorm_s0.cu", "edt_envelope.cu")
+SOURCES = ("conv3x3x3.cu", "evonorm_s0.cu", "edt_envelope.cu", "glue3d.cu")
 
 
 def warm_up(device) -> None:
@@ -126,6 +126,7 @@ def warm_up(device) -> None:
     from .conv3d import conv3x3x3
     from .edt import envelope
     from .evonorm import evonorm_s0
+    from .glue import se_gate_pool, upsample_cat
     builds = [start_build(src) for src in SOURCES]
     for build in builds:
         finish_build(build)
@@ -135,4 +136,7 @@ def warm_up(device) -> None:
     evonorm_s0(torch.ones((1, 2, 2, 2, 8), device=device), torch.ones(8, device=device),
                torch.zeros(8, device=device))
     envelope(torch.zeros((2, 8), device=device))
+    ones = functools.partial(torch.ones, device=device, dtype=torch.bfloat16)
+    se_gate_pool(ones((1, 2, 2, 2, 8)), ones((1, 8)), pool=True)
+    upsample_cat(ones((1, 2, 2, 2, 8)), ones((1, 1, 1, 1, 8)))
     torch.cuda.synchronize(device)

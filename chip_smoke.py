@@ -6,13 +6,16 @@
 Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. build the hand-written kernels from the sources in this checkout (the
-   CUDA conv, EvoNorm and EDT envelope, one nvcc each, all at once), and
-   print each library's build time;
+   CUDA conv, EvoNorm, EDT envelope and the glue passes, one nvcc each,
+   all at once), and print each library's build time;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the served case gives it, and time kernel, plain version and,
    where one exists, the one PyTorch call computing the same function,
    with each shape's launch plan (the conv's grid and split-K count,
-   EvoNorm's blocks and channel vector);
+   EvoNorm's blocks and channel vector); the glue kernels (the ResidualSE
+   gate with MaxAvgPool, the upsample with the skip concat) against the
+   PyTorch calls they replace, each timed beside them, and the served w48
+   forward through them (7 + 3 launches) timed against the composition;
 3. hold the width-48 model on the card (kernels) against the same model on
    the CPU (plain versions), fp32; then each of the model zoo's eight names
    (``equiunet`` at 48³, the others at 32³) and three other norms
@@ -21,7 +24,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    --replace_value``, bf16) on a synthetic 240×240×155 case with seeded
    random width-48 weights; the kernels' launch counters are zeroed just
    before and read just after, and must show one forward (14 convs, 21
-   EvoNorms);
+   EvoNorms, 7 ResidualSE gates and 3 upsamples of the glue). Every
+   served, validated or ensembled EquiUnetASSPEvo forward of the later
+   phases is counted with its 7 + 3 glue launches, every train step, slab
+   and other model with none;
 5. the same case through the CLI with ``--tta`` (16 forwards);
 6. where one served case's time goes, stage by stage;
 7. the EDT envelope kernels (the mask pass, the general pass) against
@@ -149,7 +155,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     1e-4 of one process's; (c) ``Engine.evaluate`` on phase 12's val case
     with its target in fp32, the loss within 1e-3 relative of one
     process's and Dice printed; (d) each rank's launches a forward (14 B1, 21 + 21 split
-    B2, none of B2's one-call path), peak memory and seconds beside one
+    B2, none of B2's one-call path nor of the glue), peak memory and seconds beside one
     process's;
 25. the eval pipeline: a backlog of six synthetic 240×240×155 cases served
     by the inference CLI with phase 4's member (``--cleaning_areas
@@ -244,16 +250,23 @@ PATCH = (128, 128, 128)         # the train step's patch (arguments.py:52-53)
 # beside it.
 EDT_ENVELOPE_OPS = 25
 EDT_SCAN_OPS = 4
+# the glue kernels' launches a forward of EquiUnetASSPEvo with no autograd
+# outside a slab (7 ResidualSE gates, 3 upsamples), and of every other
+# forward: training, slabs and the other models keep PyTorch's calls
+GLUE_FORWARD = dict(se_gate_pool=7, upsample_cat=3)
+NO_GLUE = dict(se_gate_pool=0, upsample_cat=0)
 # launches per train step: the EDT maps of the target and the three heads
 # are one edt_sq batch (the mask pass and two general passes)
-TRAIN_STEP_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=3)
+TRAIN_STEP_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=3, **NO_GLUE)
 # dice_boundary: no EDT in the step; the loader's one_hot2dist makes one
 # edt_sq batch (3 channels, negative and positive) a case
-BOUNDARY_STEP_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21)
+BOUNDARY_STEP_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21, **NO_GLUE)
 EDT_LAUNCHES_PER_LOADED_CASE = 3
-# a validation case with dice_hd: the forward with its deep heads, and the
-# loss's one EDT batch (the target and three heads, 12 masks of the case)
-VAL_CASE_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=3)
+# a served forward (no loss), and a validation case with dice_hd: the
+# forward with its deep heads, and the loss's one EDT batch (the target and
+# three heads, 12 masks of the case)
+SERVED_FORWARD_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=0, **GLUE_FORWARD)
+VAL_CASE_LAUNCHES = dict(SERVED_FORWARD_LAUNCHES, edt_envelope=3)
 SW_ROI = (128, 128, 128)        # --sliding_window_size's default
 SW_BATCH = 2                    # windows a forward (engine.py:459)
 # per forward of EquiUnetASSPEvo w48: (level, C_in, C_out, count) of the 3³
@@ -273,6 +286,12 @@ MODEL1_CONV_CALLS = [(1, 4, 48, 1), (1, 48, 48, 2), (1, 96, 48, 1), (2, 48, 96, 
                      (4, 384, 384, 1), (4, 768, 192, 1)]
 # RefUnet's conv_d0 (48 -> the 3 logits): one N tile of 48, 45 of it empty
 REFUNET_CONV_CALLS = [(1, 48, 3, 1)]
+# the glue kernels a forward: (level, C, pool) of the ResidualSE gates
+# (encoders 1-4, decoders 3-1) and (level, Cs, Cu) of the upsamples with
+# their skip concats (decoders 3-1; low at level + 1)
+GLUE_GATE_CALLS = [(1, 48, True), (2, 96, True), (3, 192, True), (4, 384, False),
+                   (3, 192, False), (2, 96, False), (1, 48, False)]
+GLUE_UPSAMPLE_CALLS = [(3, 96, 96), (2, 48, 48), (1, 24, 24)]
 # the model zoo's launches a forward with deep heads (conv3x3x3, evonorm_s0):
 # the conv kernel runs every stride-1 dilation-1 3³ conv, a RefUnet adds 11,
 # a recurrent block runs its conv three times
@@ -287,13 +306,13 @@ ZOO_CHECKS = [(name, "group", 48 if name == "equiunet" else 32) for name in ZOO_
 MODEL1_ARGS = ("--model", "equiunet", "--norm", "group", "--act", "relu", "--width", "48",
                "--criterion", "dice", "--optimizer", "ranger", "--decay_type", "cosine",
                "--learning_rate", "0.0003", "--remove_outliers")
-MODEL1_STEP_LAUNCHES = dict(conv3x3x3=15, evonorm_s0=0, edt_envelope=0)
+MODEL1_STEP_LAUNCHES = dict(conv3x3x3=15, evonorm_s0=0, edt_envelope=0, **NO_GLUE)
 # the --norm batch phase: the attention unet, whose gates' BatchNorms the
 # JAX package never trains
 BATCHNORM_ARGS = ("--model", "att_unet", "--norm", "batch", "--width", "48", "--criterion",
                   "dice", "--optimizer", "ranger", "--decay_type", "cosine",
                   "--learning_rate", "0.0003")
-BATCHNORM_STEP_LAUNCHES = dict(conv3x3x3=17, evonorm_s0=0, edt_envelope=0)
+BATCHNORM_STEP_LAUNCHES = dict(conv3x3x3=17, evonorm_s0=0, edt_envelope=0, **NO_GLUE)
 # the MONAI-backed names: the conv kernel runs every stride-1 dilation-1 3³
 # conv, narrow ones included (SegResNet's 8 channels, UNETR's 16); VNet's
 # convs are 5³ and 2³, HighResNet's dilated ones and every strided conv
@@ -319,7 +338,7 @@ UNETR_CONV_CALLS = [(1, 4, 16, 1), (1, 16, 16, 2), (1, 32, 16, 1)]
 # phase 19: nnunet as the nnU-Net layout trains it, with novograd
 NNUNET_ARGS = ("--model", "nnunet", "--norm", "instance", "--criterion", "dice",
                "--optimizer", "novograd", "--decay_type", "cosine", "--learning_rate", "1e-3")
-NNUNET_STEP_LAUNCHES = dict(conv3x3x3=17, evonorm_s0=0, edt_envelope=0)
+NNUNET_STEP_LAUNCHES = dict(conv3x3x3=17, evonorm_s0=0, edt_envelope=0, **NO_GLUE)
 # the resumed run against the uninterrupted one (stated before the first
 # chip run): the last step's loss within 1e-3 relative, and every tensor
 # within 5 % of how far the uninterrupted run moved it (cuDNN's backward may
@@ -361,7 +380,7 @@ DDP_PARAM_SHARE = dict(fp32=1e-3, bf16=1e-2)
 # none of B2's one-call path
 SPATIAL_SPACE = 2
 SPATIAL_FORWARD_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=0, evonorm_s0_stats=21,
-                                evonorm_s0_apply=21)
+                                evonorm_s0_apply=21, **NO_GLUE)
 SPATIAL_LABEL_TARGET = 0.999
 SPATIAL_LABEL_MARGIN = 5e-4
 SPATIAL_FP32_LABEL_MARGIN = 1e-4
@@ -389,7 +408,8 @@ ZOO_SPATIAL = [("equiunet_ref", "group", "relu", "case"),
                ("unet_tr", "instance", "relu", "crop")]
 ZOO_SPATIAL_CROP = 96
 # their B1 launches a main-head forward (phases 3 and 18's counts; no VAE
-# branch), and equiunet_assp_evo_ref's EvoNorms
+# branch), and equiunet_assp_evo_ref's EvoNorms (its one-process forward
+# also launches the glue, GLUE_FORWARD; no slab does)
 ZOO_SPATIAL_LAUNCHES = dict(equiunet_ref=26, att_equiunet=15, equiunet_assp_evo_ref=25,
                             modified_unet=17, att_unet=17, r2unet=45, r2attunet=45,
                             basic_unet=18, segresnet=25, segresnetvae=25, highresnet=7, vnet=0,
@@ -435,10 +455,10 @@ EVONORM_APPLY_OPS = 7
 # SegResNetVAE with its VAE term
 UNETR_ARGS = ("--model", "unet_tr", "--norm", "instance", "--criterion", "dice",
               "--optimizer", "adamw", "--decay_type", "cosine", "--learning_rate", "1e-4")
-UNETR_STEP_LAUNCHES = dict(conv3x3x3=10, evonorm_s0=0, edt_envelope=0)
+UNETR_STEP_LAUNCHES = dict(conv3x3x3=10, evonorm_s0=0, edt_envelope=0, **NO_GLUE)
 SEGRESNETVAE_ARGS = ("--model", "segresnetvae", "--criterion", "dice", "--optimizer",
                      "adamw", "--decay_type", "cosine", "--learning_rate", "1e-4")
-SEGRESNETVAE_STEP_LAUNCHES = dict(conv3x3x3=31, evonorm_s0=0, edt_envelope=0)
+SEGRESNETVAE_STEP_LAUNCHES = dict(conv3x3x3=31, evonorm_s0=0, edt_envelope=0, **NO_GLUE)
 
 
 def log(msg: str) -> None:
@@ -459,6 +479,22 @@ def time_ms(fn, iters: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def enqueue_ms(fn, iters: int = 9) -> float:
+    """Median host time to enqueue ``fn`` (no synchronise inside the
+    timing), each run after the card has finished the one before."""
+    import statistics
+
+    import torch
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def bound(ops: float, peak_ops: float, nbytes: float) -> tuple:
@@ -583,6 +619,125 @@ def check_evonorm(level_shape, dev, batch: int = 1) -> dict:
                 f"plain {row['plain_ms']:.4f} ms")
             del x, y, ref, diff
     return dict(rows=rows, **total)
+
+
+def check_glue(level_shape, dev) -> dict:
+    """The glue kernels at the served forward's calls (bf16) against the
+    PyTorch calls the model made there, the next conv's copy into its
+    layout included: the gate and max bit-equal, the mean and the upsample
+    counted where they differ (at most one bf16 ulp); each timed beside
+    that composition, with its bound (bytes). Then the w48 forward at the
+    served shape through the kernels and through the composition, its
+    launches counted and both timed."""
+    import torch
+    from brats21_tpu_torch.models import assp_evo, get_model
+    from brats21_tpu_torch.models.layers import (from_kernel_layout, max_avg_pool,
+                                                 to_kernel_layout, upsample)
+    from brats21_tpu_torch.ops.kernels import conv3d, evonorm, glue
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    dtype = torch.bfloat16
+    rows, total = [], dict(ms=0.0, composition_ms=0.0, bound_ms=0.0, differ=0)
+
+    def differ(got, want, what):
+        g, w = got.float(), want.float()
+        if not bool(((g - w).abs() <= 2.0 ** -7 * w.abs() + 2.0 ** -133).all()):
+            raise AssertionError(f"{what}: more than one bf16 ulp off PyTorch's calls")
+        return int((g != w).sum())
+
+    def add(row):
+        rows.append(row)
+        for k in ("ms", "composition_ms", "bound_ms", "differ"):
+            total[k] += row[k]
+        log(f"{row['kernel']} {row['shape']}: {row['differ']} elements differ from PyTorch's; "
+            f"kernel {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({100 * row['bound_ms'] / row['ms']:.1f} %), composition "
+            f"{row['composition_ms']:.4f} ms")
+
+    for level, c, pool in GLUE_GATE_CALLS:
+        d, h, w = level_shape(level)
+        x = torch.randn((1, d, h, w, c), generator=gen, device=dev).to(dtype)
+        s = torch.rand((1, c), generator=gen, device=dev).to(dtype)
+        v = from_kernel_layout(x)
+
+        def composition():
+            y = v + v * s[:, :, None, None, None]
+            return y, (to_kernel_layout(max_avg_pool(y)) if pool else None)
+
+        y, pooled = glue.se_gate_pool(x, s, pool)
+        want, want_pooled = composition()
+        if not torch.equal(y, to_kernel_layout(want)):
+            raise AssertionError(f"se_gate_pool at {x.shape}: the gate differs")
+        n = 0
+        if pool:
+            if not torch.equal(pooled[..., :c], want_pooled[..., :c]):
+                raise AssertionError(f"se_gate_pool at {x.shape}: the max differs")
+            n = differ(pooled[..., c:], want_pooled[..., c:], f"mean at {tuple(x.shape)}")
+        m = d * h * w * c
+        add(dict(kernel="se_gate_pool", shape=[1, d, h, w, c], pool=pool, differ=n,
+                 plan=glue.glue_plan((d // 2) * (h // 2) * (w // 2) if pool else d * h * w,
+                                     (c,), 2).__dict__,
+                 ms=time_ms(lambda: glue.se_gate_pool(x, s, pool)),
+                 composition_ms=time_ms(composition),
+                 bound_ms=bound(0.0, PEAK_BF16, 2.0 * (2.25 if pool else 2.0) * m)[0]))
+        del x, v, y, pooled, want, want_pooled
+    for level, cs, cu in GLUE_UPSAMPLE_CALLS:
+        d, h, w = level_shape(level)
+        skip = torch.randn((1, d, h, w, cs), generator=gen, device=dev).to(dtype)
+        low = torch.randn((1, d // 2, h // 2, w // 2, cu), generator=gen, device=dev).to(dtype)
+
+        def composition():
+            return to_kernel_layout(torch.cat([from_kernel_layout(skip),
+                                               upsample(from_kernel_layout(low))], dim=1))
+
+        out, want = glue.upsample_cat(skip, low), composition()
+        if not torch.equal(out[..., :cs], skip):
+            raise AssertionError(f"upsample_cat at {skip.shape}: the skip differs")
+        m = d * h * w
+        add(dict(kernel="upsample_cat", shape=[1, d, h, w, cs, cu],
+                 differ=differ(out[..., cs:], want[..., cs:], f"upsample at {tuple(skip.shape)}"),
+                 plan=glue.glue_plan(m, (cs, cu), 2).__dict__,
+                 ms=time_ms(lambda: glue.upsample_cat(skip, low)),
+                 composition_ms=time_ms(composition),
+                 bound_ms=bound(0.0, PEAK_BF16, 2.0 * (m * cs + m // 8 * cu + m * (cs + cu)))[0]))
+        del skip, low, out, want
+    torch.cuda.empty_cache()
+
+    torch.manual_seed(SEED)
+    model = get_model({"model": "equiunet_assp_evo", "width": WIDTH}).to(dev).eval()
+    x = torch.randn((1, 4, *level_shape(1)), generator=gen, device=dev).to(dtype).contiguous(
+        memory_format=torch.channels_last_3d)
+    route = assp_evo.glue_route
+    forward = {}
+    with torch.inference_mode():
+        counts = (glue.se_gate_pool_launches, glue.upsample_cat_launches, conv3d.launches,
+                  evonorm.launches)
+        got = model(x)
+        launches = [a - b for a, b in zip((glue.se_gate_pool_launches,
+                                           glue.upsample_cat_launches, conv3d.launches,
+                                           evonorm.launches), counts)]
+        if launches != [7, 3, 14, 21]:
+            raise AssertionError(f"served forward: launches {launches} (glue gate, upsample, "
+                                 "B1, B2), want [7, 3, 14, 21]")
+        forward["glue_ms"] = time_ms(lambda: model(x), iters=3)
+        forward["glue_host_ms"] = enqueue_ms(lambda: model(x))
+        assp_evo.glue_route = lambda: False
+        try:
+            want = model(x)
+            forward["composition_ms"] = time_ms(lambda: model(x), iters=3)
+            forward["composition_host_ms"] = enqueue_ms(lambda: model(x))
+        finally:
+            assp_evo.glue_route = route
+    heads = list(zip(output_heads(got), output_heads(want)))
+    forward["heads_equal"] = all(torch.equal(g, w_) for g, w_ in heads)
+    forward["max_abs_diff"] = max((g.float() - w_.float()).abs().max().item() for g, w_ in heads)
+    log(f"served w48 forward: through the glue kernels {forward['glue_ms']:.3f} ms "
+        f"({forward['glue_host_ms']:.3f} ms to enqueue), through the composition "
+        f"{forward['composition_ms']:.3f} ms ({forward['composition_host_ms']:.3f}); heads equal "
+        f"{forward['heads_equal']} (max |diff| {forward['max_abs_diff']:.3g}); launches "
+        f"{launches} (glue gate, upsample, B1, B2)")
+    del model, x, got, want
+    torch.cuda.empty_cache()
+    return dict(rows=rows, forward=forward, forward_launches=launches, **total)
 
 
 def check_evonorm_split(level_shape, dev) -> dict:
@@ -747,12 +902,14 @@ def check_tf32_off(cli: str) -> None:
 class Tally:
     """The kernels' launch counters, read and zeroed by ``take`` (the EDT's
     under its lock, since a loader thread may launch it while the main
-    thread reads); ``total`` keeps every launch taken since the tally was
-    made, which zeroes the counters."""
+    thread reads; each glue entry point's own); ``total`` keeps every
+    launch taken since the tally was made, which zeroes the counters."""
 
     def __init__(self):
-        from brats21_tpu_torch.ops.kernels import conv3d, edt, evonorm
-        self.mods = dict(conv3x3x3=conv3d, evonorm_s0=evonorm, edt_envelope=edt)
+        from brats21_tpu_torch.ops.kernels import conv3d, edt, evonorm, glue
+        self.mods = dict(conv3x3x3=conv3d, evonorm_s0=evonorm, edt_envelope=edt,
+                         se_gate_pool=(glue, "se_gate_pool_launches"),
+                         upsample_cat=(glue, "upsample_cat_launches"))
         self.total = dict.fromkeys(self.mods, 0)
         self.take()
         self.total = dict.fromkeys(self.mods, 0)
@@ -763,7 +920,9 @@ class Tally:
             if hasattr(m, "take_launches"):
                 taken[k] = m.take_launches()
             else:
-                taken[k], m.launches = m.launches, 0
+                m, attr = m if isinstance(m, tuple) else (m, "launches")
+                taken[k] = getattr(m, attr)
+                setattr(m, attr, 0)
             self.total[k] += taken[k]
         return taken
 
@@ -1474,7 +1633,8 @@ def ensemble_phase(work: Path, run_dir: Path, other_run: Path, val_data: Path,
         else:
             _, _, starts = window_plan(case["padded"], SW_ROI)
             batches = -(-len(starts) // SW_BATCH)
-            member = dict(conv3x3x3=batches * 14, evonorm_s0=batches * 21, edt_envelope=3)
+            member = {k: batches * v for k, v in SERVED_FORWARD_LAUNCHES.items()}
+            member["edt_envelope"] = 3
             if mode == "sliding_tta":
                 member = {k: 16 * v for k, v in member.items()}
             case["windows"], case["window_batches"] = len(starts), batches
@@ -1510,8 +1670,7 @@ def docker_phase(work: Path, run_dir: Path, case_dir: Path, dev) -> dict:
                   "--replace_value", "--replace_value_threshold", "300", "--cleaning_areas",
                   "--cleaning_areas_threshold", "20", "--config", str(run_dir / "config.yaml")]
     runs, labels = {}, {}
-    want_case = {k: 16 * v for k, v in dict(conv3x3x3=14, evonorm_s0=21,
-                                             edt_envelope=0).items()}
+    want_case = {k: 16 * v for k, v in SERVED_FORWARD_LAUNCHES.items()}
     for mode, extra in (("run_directory", []),
                         ("import_pth", ["--import_pth", str(run_dir / "best_model.pth")])):
         out = work / f"out_docker_{mode}"
@@ -1615,7 +1774,7 @@ def watch_phase(work: Path, run_dir: Path, cropped, dev) -> dict:
     counts = native.take_counts()
     case_s = {pid: float(logged(rf"case {pid}: ([\d.]+)s")[-1]) for pid in cases[:2]}
     attempts = int(logged(rf"case {bad} failed (\d+)/\d+ attempts")[0])
-    want = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=0)
+    want = SERVED_FORWARD_LAUNCHES
     if [c["launches"] for c in probe.cases] != [want] * 3:
         raise AssertionError(f"phase 15: warm-up and watched case launches "
                              f"{[c['launches'] for c in probe.cases]}, want {want} each")
@@ -2315,13 +2474,18 @@ def served_labels(logits, img):
 
 def spatial_counts(conv3d, evonorm, reset: bool = False) -> dict:
     """The spatial path's launch counters (B1, B2's one call, its split
-    statistics and apply), zeroed after the read with ``reset``."""
+    statistics and apply, the glue's two entry points), zeroed after the
+    read with ``reset``."""
+    from brats21_tpu_torch.ops.kernels import glue
     counts = dict(conv3x3x3=conv3d.launches, evonorm_s0=evonorm.launches,
                   evonorm_s0_stats=evonorm.stats_launches,
-                  evonorm_s0_apply=evonorm.apply_launches)
+                  evonorm_s0_apply=evonorm.apply_launches,
+                  se_gate_pool=glue.se_gate_pool_launches,
+                  upsample_cat=glue.upsample_cat_launches)
     if reset:
         conv3d.launches = evonorm.launches = evonorm.stats_launches = 0
         evonorm.apply_launches = 0
+        glue.se_gate_pool_launches = glue.upsample_cat_launches = 0
     return counts
 
 
@@ -2431,7 +2595,8 @@ def spatial_phase(work: Path, case_img, val_run: Path, dev) -> dict:
         if run["launches"] != SPATIAL_FORWARD_LAUNCHES:
             raise AssertionError(f"phase 24 rank {r}: launches a forward {run['launches']}, "
                                  f"want {SPATIAL_FORWARD_LAUNCHES}")
-    if one["launches"]["conv3x3x3"] != 14 or one["launches"]["evonorm_s0"] != 21:
+    if one["launches"]["conv3x3x3"] != 14 or one["launches"]["evonorm_s0"] != 21 or any(
+            one["launches"][k] != v for k, v in GLUE_FORWARD.items()):
         raise AssertionError(f"phase 24 one process: launches {one['launches']}")
     if share < floor - SPATIAL_LABEL_MARGIN or share_f32 < one_f32 - SPATIAL_FP32_LABEL_MARGIN:
         raise AssertionError(
@@ -2683,7 +2848,7 @@ def zoo_spatial_phase(work: Path, case_img, floor_phase24: float, dev) -> dict:
         main_limit = max(SPATIAL_FP32_ATOL * ref["main_scale"],
                          ZOO_SPATIAL_FP32_FLOOR * ref["fp32_floor"])
         want = dict(ref["launches"], evonorm_s0_stats=ref["launches"]["evonorm_s0"],
-                    evonorm_s0_apply=ref["launches"]["evonorm_s0"], evonorm_s0=0)
+                    evonorm_s0_apply=ref["launches"]["evonorm_s0"], evonorm_s0=0, **NO_GLUE)
         row = dict(input=ref["input"], label_share=[m["label_share"] for m in mine],
                    label_floor_batch_of_two=ref["floor"], label_limit=limit,
                    label_share_vs_fp32=[m["label_share_vs_fp32"] for m in mine],
@@ -2702,11 +2867,13 @@ def zoo_spatial_phase(work: Path, case_img, floor_phase24: float, dev) -> dict:
                    peak_gib_per_rank=[m["peak_bytes"] / 2**30 for m in mine],
                    peak_gib_one=ref["peak_bytes"] / 2**30)
         res["names"][name] = row
+        glue_want = GLUE_FORWARD if name in ZOO_SPATIAL_EVONORMS else NO_GLUE
         if ref["launches"]["conv3x3x3"] != ZOO_SPATIAL_LAUNCHES[name] or \
-                ref["launches"]["evonorm_s0"] != ZOO_SPATIAL_EVONORMS.get(name, 0):
+                ref["launches"]["evonorm_s0"] != ZOO_SPATIAL_EVONORMS.get(name, 0) or any(
+                    ref["launches"][k] != v for k, v in glue_want.items()):
             failures.append(f"phase 26 {name}: one process launched {ref['launches']}, "
-                            f"want {ZOO_SPATIAL_LAUNCHES[name]} B1 and "
-                            f"{ZOO_SPATIAL_EVONORMS.get(name, 0)} B2")
+                            f"want {ZOO_SPATIAL_LAUNCHES[name]} B1, "
+                            f"{ZOO_SPATIAL_EVONORMS.get(name, 0)} B2 and glue {glue_want}")
         if mine[0]["checksum"] != mine[1]["checksum"] or not all(
                 m["heads_finite"] and m["n_heads"] == len(mine[0]["heads_max_abs_diff"])
                 for m in mine):
@@ -3027,7 +3194,7 @@ def serve_ranks_phase(work: Path, base: list, data: Path, run_dir: Path, other_r
             # unevenly: the ranks' sum is the whole), and on every rank the
             # members' losses of the stitched logits (3 EDT launches each)
             ok = all(sum(g[kk] for g in got) == ref["launches"][kk]
-                     for kk in ("conv3x3x3", "evonorm_s0")) and all(
+                     for kk in ("conv3x3x3", "evonorm_s0", *GLUE_FORWARD)) and all(
                 g["edt_envelope"] == ref["launches"]["edt_envelope"] for g in got)
         else:
             ok = all(g == want for g in got)
@@ -3101,7 +3268,8 @@ def nodes_phase(work: Path, run9_dir: Path, train_data: Path, val_data: Path, da
     served = run_cli(["--config", *configs, "--on", "test", "--input", str(data),
                       "--device", "0", "--output", str(work / "out_folds")], dev)
     case, = served["cases"]
-    if case["members"] != 5 or served["launches"]["conv3x3x3"] != 5 * 14:
+    if case["members"] != 5 or served["launches"]["conv3x3x3"] != 5 * 14 or any(
+            served["launches"][k] != 5 * v for k, v in GLUE_FORWARD.items()):
         raise AssertionError(f"phase 23 folds ensemble: {case['members']} members, launches "
                              f"{served['launches']}")
     check_segmentation(work / "out_folds" / "Inference_segmentations_test"
@@ -3267,7 +3435,7 @@ def pipeline_phase(work: Path, member: tuple, val_run: Path, val_data: Path, car
         rows[name] = report.read_text().splitlines()
     # the checks
     n = len(cases)
-    per_case = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=0)
+    per_case = SERVED_FORWARD_LAUNCHES
     for name, run in runs.items():
         k = PIPELINE_TTA_CASES if name.startswith("d") else n
         mult = 16 if name.startswith("d") else 1
@@ -3433,6 +3601,10 @@ def main() -> int:
         d, h, _ = level_shape(level)
         return d, h, slab_z // 2 ** (level - 1)
 
+    glue_res = check_glue(level_shape, dev)
+    log(f"phase 2 glue kernels a served forward: {glue_res['ms']:.3f} ms (bound "
+        f"{glue_res['bound_ms']:.3f}, the PyTorch calls they replace "
+        f"{glue_res['composition_ms']:.3f}); {glue_res['differ']} elements differ")
     evo_split = check_evonorm_split(slab_shape, dev)
     conv_slab = check_conv(lambda level: (*slab_shape(level)[:2], slab_shape(level)[2] + 2),
                            dev)
@@ -3481,7 +3653,7 @@ def main() -> int:
     main_run = run_cli(base + ["--output", str(work / "out")], dev)
     seg_dir = work / "out" / "Inference_segmentations_test"
     check_segmentation(seg_dir / "BraTS2021_00000.nii.gz")
-    want = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=0)
+    want = SERVED_FORWARD_LAUNCHES
     if main_run["launches"] != want:
         raise AssertionError(f"main path launches {main_run['launches']} != {want}")
     log(f"phase 4 main path: CLI wall {main_run['wall_s']:.2f}s, case "
@@ -3675,6 +3847,43 @@ def main() -> int:
                                     spatial_res["label_share_floor_batch_of_two"], dev)
 
     sliding_case, = ensemble["sliding"]["cases"]
+
+    def launches_by_path(name: str) -> dict:
+        """A kernel's launches on each path the script drove, each counted
+        in its own run."""
+        return dict(
+            inference_case=main_run["launches"][name],
+            train_step=train_launches[name],
+            val_case=val["val_cases"][0]["launches"][name],
+            val_case_tta=val["val_cases"][2]["launches"][name],
+            sliding_window_case=sliding_case["launches"][name]
+            // sliding_case["members"],
+            docker_case_tta=docker["runs"]["run_directory"]["launches"][name],
+            watched_case=watch["case_launches"][name],
+            model1_train_step=MODEL1_STEP_LAUNCHES[name],
+            model1_case=model1["serve"]["plain"]["launches"][name],
+            model1_case_tta=model1["serve"]["tta"]["launches"][name],
+            batchnorm_att_unet_train_step=BATCHNORM_STEP_LAUNCHES[name],
+            nnunet_train_step=nnunet["train"]["step_launches"][name],
+            nnunet_case=nnunet["served"]["launches"][name],
+            unet_tr_train_step=unetr["train"]["step_launches"][name],
+            unet_tr_case=unetr["served"]["launches"][name],
+            segresnetvae_train_step=unetr["segresnetvae"]["train"][
+                "step_launches"][name],
+            ddp_train_step_per_rank=ddp["launches_per_step_per_rank"][name],
+            **{f"two_ranks_{k}_per_rank": [r[name] for r in v["launches_per_rank"]]
+               for k, v in serve2.items()},
+            two_ranks_spatial_forward_per_rank=[
+                r.get(name, 0) for r in spatial_res["launches_per_rank"]],
+            two_ranks_zoo_spatial_forward_per_rank={
+                model: [r.get(name, 0) for r in zrow["launches_per_rank"]]
+                for model, zrow in zoo_spatial["names"].items()},
+            pipeline_case=pipeline["launches"]["b"][name] // pipeline["cases"],
+            pipeline_case_tta=pipeline["launches"]["d_b"][name]
+            // PIPELINE_TTA_CASES,
+            pipeline_val_case=pipeline["val"]["launches"][name]
+            // len(pipeline["val"]["batch_time_s"]["a"]))
+
     kernel_rows = []
     for name, route, source, replaces, tolerance, res, res_train, ms_per in (
             ("conv3x3x3", "cuda", "brats21_tpu_torch/csrc/conv3x3x3.cu",
@@ -3697,38 +3906,7 @@ def main() -> int:
                    bound_by=res.get("bound_by") or (
                        "operations" if res["ops_ms"] >= res["bytes_ms"] else "bytes"),
                    library_ms=res.get("library_ms"), ms_per=ms_per,
-                   launches_by_path=dict(
-                       inference_case=main_run["launches"][name],
-                       train_step=train_launches[name],
-                       val_case=val["val_cases"][0]["launches"][name],
-                       val_case_tta=val["val_cases"][2]["launches"][name],
-                       sliding_window_case=sliding_case["launches"][name]
-                       // sliding_case["members"],
-                       docker_case_tta=docker["runs"]["run_directory"]["launches"][name],
-                       watched_case=watch["case_launches"][name],
-                       model1_train_step=MODEL1_STEP_LAUNCHES[name],
-                       model1_case=model1["serve"]["plain"]["launches"][name],
-                       model1_case_tta=model1["serve"]["tta"]["launches"][name],
-                       batchnorm_att_unet_train_step=BATCHNORM_STEP_LAUNCHES[name],
-                       nnunet_train_step=nnunet["train"]["step_launches"][name],
-                       nnunet_case=nnunet["served"]["launches"][name],
-                       unet_tr_train_step=unetr["train"]["step_launches"][name],
-                       unet_tr_case=unetr["served"]["launches"][name],
-                       segresnetvae_train_step=unetr["segresnetvae"]["train"][
-                           "step_launches"][name],
-                       ddp_train_step_per_rank=ddp["launches_per_step_per_rank"][name],
-                       **{f"two_ranks_{k}_per_rank": [r[name] for r in v["launches_per_rank"]]
-                          for k, v in serve2.items()},
-                       two_ranks_spatial_forward_per_rank=[
-                           r.get(name, 0) for r in spatial_res["launches_per_rank"]],
-                       two_ranks_zoo_spatial_forward_per_rank={
-                           model: [r.get(name, 0) for r in zrow["launches_per_rank"]]
-                           for model, zrow in zoo_spatial["names"].items()},
-                       pipeline_case=pipeline["launches"]["b"][name] // pipeline["cases"],
-                       pipeline_case_tta=pipeline["launches"]["d_b"][name]
-                       // PIPELINE_TTA_CASES,
-                       pipeline_val_case=pipeline["val"]["launches"][name]
-                       // len(pipeline["val"]["batch_time_s"]["a"])),
+                   launches_by_path=launches_by_path(name),
                    shapes=res["rows"])
         if name == "conv3x3x3":
             row["model1"] = {
@@ -3781,6 +3959,18 @@ def main() -> int:
         else:
             row["val_loss_batch"] = res["val_loss_batch"]
         kernel_rows.append(row)
+    for name in GLUE_FORWARD:
+        res = [r for r in glue_res["rows"] if r["kernel"] == name]
+        kernel_rows.append(dict(
+            name=name, route="cuda", source="brats21_tpu_torch/csrc/glue3d.cu",
+            replaces="none (XLA fusions in the JAX package)",
+            launches_per="served forward", launches=main_run["launches"][name],
+            launches_by_path=launches_by_path(name),
+            tolerance="gate and max bit-equal; mean and upsample within one bf16 ulp",
+            differ=sum(r["differ"] for r in res), ms=sum(r["ms"] for r in res),
+            bound_ms=sum(r["bound_ms"] for r in res), bound_by="bytes",
+            composition_ms=sum(r["composition_ms"] for r in res), ms_per="served forward",
+            shapes=res))
     for run in (train, boundary, val):
         run.pop("forward_launches")
         run.pop("backward_launches")
@@ -3792,7 +3982,7 @@ def main() -> int:
                    zoo_models=zoo, model1=model1, batchnorm=batchnorm, monai_zoo=monai,
                    nnunet=nnunet, unetr=unetr, ddp=ddp, serve_two_ranks=serve2,
                    two_nodes=nodes, spatial=spatial_res, pipeline=pipeline,
-                   zoo_spatial=zoo_spatial,
+                   zoo_spatial=zoo_spatial, glue_forward=glue_res["forward"],
                    total_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))
     shutil.rmtree(work, ignore_errors=True)

@@ -11,8 +11,11 @@ the sliding
 window and a dice_hd validation loss on the card against the CPU, a
 gloo all-reduce of CUDA tensors between two ranks on one card, B2's
 split statistics and apply entry points against their plain versions, the
-sparse wire's device round trip, and ``Engine.evaluate`` staged with cases
-in flight against its inline, case-serial run, byte for byte. Marked
+sparse wire's device round trip, ``Engine.evaluate`` staged with cases
+in flight against its inline, case-serial run, byte for byte, and the glue
+kernels (the ResidualSE gate with MaxAvgPool, the upsample with the skip
+concat) against PyTorch's own calls at the served case's levels, with a
+served-shape forward through them against the composition. Marked
 ``cuda``: without a card every test skips. On a machine with one, from the repository root:
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
@@ -23,9 +26,11 @@ machine need not have.)"""
 import pytest
 import torch
 
-from brats21_tpu_torch.models import get_model
+from brats21_tpu_torch.models import assp_evo, get_model
+from brats21_tpu_torch.models.layers import (from_kernel_layout, max_avg_pool,
+                                             to_kernel_layout, upsample)
 from brats21_tpu_torch.ops.edt import edt_sq
-from brats21_tpu_torch.ops.kernels import conv3d, edt, evonorm
+from brats21_tpu_torch.ops.kernels import conv3d, edt, evonorm, glue
 from brats21_tpu_torch.ops.kernels.conv3d import (Conv3x3x3Function, conv3x3x3,
                                                   conv3x3x3_plain)
 from brats21_tpu_torch.ops.kernels.edt import (INF, envelope, envelope_mask,
@@ -669,3 +674,113 @@ def test_staged_evaluate_matches_inline_on_card(dev, tmp_path, monkeypatch):
         for k in want[0]:
             assert np.array_equal(got[0][k], want[0][k]), k
         assert got[1] == want[1]
+
+
+# the served case's levels (200×200×136 padded) with their channels: the
+# encoders' gates and pools (level 4: the gate alone), the decoders'
+# gates, and the upsample's (skip, low) pairs; then ragged shapes and
+# channel counts that take narrower vectors
+GATE_CASES = [((1, 200, 200, 136, 48), True), ((1, 100, 100, 68, 96), True),
+              ((1, 50, 50, 34, 192), True), ((1, 25, 25, 17, 384), False),
+              ((1, 200, 200, 136, 48), False), ((1, 100, 100, 68, 96), False),
+              ((1, 50, 50, 34, 192), False), ((2, 6, 4, 10, 24), True),
+              ((2, 3, 5, 7, 12), False), ((1, 4, 2, 6, 4), True)]
+UPSAMPLE_CASES = [((1, 200, 200, 136, 24), 24), ((1, 100, 100, 68, 48), 48),
+                  ((1, 50, 50, 34, 96), 96), ((2, 6, 4, 10, 8), 16), ((1, 4, 6, 2, 12), 4)]
+
+
+def _within_one_bf16_ulp(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    """Bit-equal, or every element within one bf16 ulp of ``want`` (2**-7
+    of its magnitude, 2**-133 at zero), with the count that differs
+    printed."""
+    if torch.equal(got, want):
+        return
+    g, w = got.float(), want.float()
+    differ = int((g != w).sum())
+    print(f"{what}: {differ} of {want.numel()} elements differ")
+    assert bool(((g - w).abs() <= 2.0 ** -7 * w.abs() + 2.0 ** -133).all()), what
+
+
+def _gate_input(shape, dtype, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    s = torch.rand((shape[0], shape[-1]), generator=gen, device=dev).to(dtype)
+    return x, s
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pool", GATE_CASES)
+def test_se_gate_pool_matches_torch(dev, shape, pool, dtype):
+    """Against ``x + x·s`` and ``max_avg_pool`` as the model called them on
+    the card: the gate and the max bit-equal, the mean bit-equal or within
+    one bf16 ulp (fp32 sums in avg_pool3d's order)."""
+    x, s = _gate_input(shape, dtype, dev, 16)
+    v = from_kernel_layout(x)
+    want = v + v * s[:, :, None, None, None]
+    n0 = glue.se_gate_pool_launches
+    y, pooled = glue.se_gate_pool(x, s, pool)
+    assert glue.se_gate_pool_launches == n0 + 1
+    assert torch.equal(y, to_kernel_layout(want))
+    if not pool:
+        assert pooled is None
+        return
+    ref = to_kernel_layout(max_avg_pool(want))
+    c = shape[-1]
+    assert pooled.shape == ref.shape and pooled.is_contiguous()
+    assert torch.equal(pooled[..., :c], ref[..., :c])
+    _within_one_bf16_ulp(pooled[..., c:], ref[..., c:], f"mean {shape} {dtype}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cu", UPSAMPLE_CASES)
+def test_upsample_cat_matches_torch(dev, shape, cu, dtype):
+    """Against ``torch.cat([skip, upsample(low)], 1)`` on the card: skip's
+    channels bit-equal, the upsample bit-equal or within one bf16 ulp."""
+    b, d, h, w, cs = shape
+    gen = torch.Generator(device=dev).manual_seed(17)
+    skip = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    low = torch.randn((b, d // 2, h // 2, w // 2, cu), generator=gen, device=dev).to(dtype)
+    n0 = glue.upsample_cat_launches
+    out = glue.upsample_cat(skip, low)
+    assert glue.upsample_cat_launches == n0 + 1
+    ref = to_kernel_layout(torch.cat([from_kernel_layout(skip),
+                                      upsample(from_kernel_layout(low))], dim=1))
+    assert out.shape == ref.shape and out.is_contiguous()
+    assert torch.equal(out[..., :cs], skip)
+    _within_one_bf16_ulp(out[..., cs:], ref[..., cs:], f"upsample {shape} {cu} {dtype}")
+
+
+def test_glue_wrappers_raise_rather_than_fall_back(dev):
+    x = torch.randn((1, 4, 4, 4, 8), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        glue.se_gate_pool(x.transpose(1, 2), x[:, 0, 0, 0].contiguous(), pool=False)
+    with pytest.raises(ValueError, match="one dtype"):
+        glue.se_gate_pool(x, x[:, 0, 0, 0].float().contiguous(), pool=True)
+    with pytest.raises(TypeError):
+        glue.upsample_cat(x.to(torch.float64), x[:, :2, :2, :2].to(torch.float64).contiguous())
+
+
+def test_served_forward_through_glue_matches_composition(dev):
+    """EquiUnetASSPEvo w48 at the served shape, bf16, under inference_mode:
+    the glue kernels (7 gate launches and 3 upsample launches a forward
+    beside B1's 14 and B2's 21) against the same forward with the
+    composition of PyTorch calls, main and deep heads."""
+    torch.manual_seed(0)
+    model = get_model({"model": "equiunet_assp_evo", "width": 48}).to(dev).eval()
+    x = torch.randn((1, 4, 200, 200, 136), device=dev).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last_3d)
+    counts = (glue.se_gate_pool_launches, glue.upsample_cat_launches, conv3d.launches,
+              evonorm.launches)
+    with torch.inference_mode():
+        got, got_deeps = model(x)
+        after = (glue.se_gate_pool_launches, glue.upsample_cat_launches, conv3d.launches,
+                 evonorm.launches)
+        route = assp_evo.glue_route
+        assp_evo.glue_route = lambda: False
+        try:
+            want, want_deeps = model(x)
+        finally:
+            assp_evo.glue_route = route
+    assert tuple(a - c for a, c in zip(after, counts)) == (7, 3, 14, 21)
+    for g, w in [(got, want)] + list(zip(got_deeps, want_deeps)):
+        assert torch.equal(g, w)
