@@ -24,7 +24,7 @@ MODEL_CHOICES = (
     "basic_unet", "nnunet", "unet_tr", "segresnet", "segresnetvae",
     "highresnet", "vnet", "modified_unet", "att_unet", "r2unet", "r2attunet",
     "equiunet", "att_equiunet", "equiunet_ref", "equiunet_assp_evo",
-    "equiunet_assp_evo_ref", "equiunet_assp_evocor",
+    "equiunet_assp_evo_ref", "equiunet_assp_evocor", "swin_unetr",
 )
 CRITERION_CHOICES = (
     "dice", "generalized_dice", "focal", "tversky", "jaccard", "hd",

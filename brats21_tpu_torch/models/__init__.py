@@ -11,11 +11,12 @@ from .equiunet import CBAM, AttEquiUnet, EquiUnet, RefUnet, Unet
 from .dynunet import DynUNet
 from .extra import BasicUNet, HighResNet, SegResNet, SegResNetVAE, VNet
 from .unet_family import AttUnet, R2AttUnet, R2Unet, UnetFamily
+from .swin_unetr import SwinUNETR
 from .unetr import UNETR
 
 __all__ = ["get_model", "EquiUnet", "AttEquiUnet", "Unet", "EquiUnetASSPEvo",
            "EvoNorm3D", "CBAM", "RefUnet", "BasicUNet", "SegResNet", "SegResNetVAE",
-           "HighResNet", "VNet", "DynUNet", "UNETR", "IN_CHANNELS"]
+           "HighResNet", "VNet", "DynUNet", "UNETR", "SwinUNETR", "IN_CHANNELS"]
 
 IN_CHANNELS = 4  # t1 / t1ce / t2 / flair (definer.py:46)
 
@@ -31,7 +32,9 @@ def get_model(cfg: Any) -> nn.Module:
     and the unet family with deep supervision on, and the MONAI-backed names
     (``basic_unet``, ``segresnet``, ``segresnetvae``, ``highresnet``,
     ``vnet``, ``nnunet``, ``unet_tr``) with the reference's
-    hyperparameters."""
+    hyperparameters, and ``swin_unetr`` with the published BraTS 2021
+    sizes (feature size 48, heads 3, 6, 12, 24; ``--width``, ``--norm``
+    and ``--act`` do not apply)."""
     get = cfg.get if isinstance(cfg, dict) else (
         lambda k, d=None: getattr(cfg, k, d))
     name = get("model")
@@ -79,4 +82,7 @@ def get_model(cfg: Any) -> nn.Module:
         return UNETR(tuple(get("patch_size")), num_classes=num_classes, feature_size=16,
                      hidden_size=768, mlp_dim=3072, num_heads=12, norm=norm,
                      in_channels=IN_CHANNELS)
+    if name == "swin_unetr":
+        return SwinUNETR(num_classes=num_classes, feature_size=48, depths=(2, 2, 2, 2),
+                         num_heads=(3, 6, 12, 24), in_channels=IN_CHANNELS)
     raise NameError("Not Supported Model")

@@ -58,7 +58,7 @@ def fill_affine_less_norms(module: nn.Module, state_dict: Dict[str, torch.Tensor
     ``bias`` in ``state_dict`` loads the identity affine (the JAX importer's
     ``opt_vec`` rule, ``import_torch.py:684-693``)."""
     for name, m in module.named_modules():
-        if not isinstance(m, InstanceNorm):
+        if not isinstance(m, InstanceNorm) or m.weight is None:
             continue
         key = f"{prefix}{name}." if name else prefix
         if key + "weight" not in state_dict and key + "bias" not in state_dict:

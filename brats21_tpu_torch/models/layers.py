@@ -161,13 +161,18 @@ class GroupNorm(nn.Module):
 class InstanceNorm(nn.Module):
     """InstanceNorm3d with affine (factory.py:188): per sample and channel
     over the spatial axes, biased variance, eps 1e-5; fp32 inside, the
-    input's dtype out (``layers.py:118-135``)."""
+    input's dtype out (``layers.py:118-135``). ``affine=False`` is
+    ``nn.InstanceNorm3d(affine=False)``, MONAI's ``norm_name="instance"``:
+    no parameters."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5, affine: bool = True):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_features))
+            self.bias = nn.Parameter(torch.zeros(num_features))
+        else:
+            self.weight = self.bias = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = to_kernel_layout(x).float()
@@ -180,7 +185,8 @@ class InstanceNorm(nn.Module):
             n, mean, m2 = spatial.group_moments(xf.reshape(b, -1, c, 1), slab).unbind(-1)
             mean, var = (t.float().reshape(b, 1, 1, 1, c) for t in (mean, m2 / n))
         y = (xf - mean) * torch.rsqrt(var + self.eps)
-        y = y * _per_channel(self.weight) + _per_channel(self.bias)
+        if self.weight is not None:
+            y = y * _per_channel(self.weight) + _per_channel(self.bias)
         return from_kernel_layout(y.to(x.dtype))
 
 

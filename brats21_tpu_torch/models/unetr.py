@@ -33,7 +33,7 @@ token, and the decoders' grids are per slab.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -157,11 +157,12 @@ class ViT(nn.Module):
 class UnetResBlock(nn.Module):
     """MONAI UnetResBlock (``unetr.py:87-113``): conv3 → norm → lrelu →
     conv3 → norm, plus a 1³ conv → norm shortcut where the channels change,
-    lrelu after the sum; bias-free convs."""
+    lrelu after the sum; bias-free convs. ``norm`` is a ``--norm`` name or
+    a norm's constructor."""
 
-    def __init__(self, cin: int, ch: int, norm: Optional[str]):
+    def __init__(self, cin: int, ch: int, norm: Union[str, None, Callable[[int], nn.Module]]):
         super().__init__()
-        ctor = get_norm_layer(norm)
+        ctor = norm if callable(norm) else get_norm_layer(norm)
         self.conv1 = Convolution(cin, ch, bias=False)
         self.conv2 = Convolution(ch, ch, bias=False)
         self.norm1 = ctor(ch)

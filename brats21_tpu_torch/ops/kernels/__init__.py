@@ -114,7 +114,7 @@ def load_library(source: str) -> ctypes.CDLL:
 
 
 #: the CUDA sources of the kernels, one library each
-SOURCES = ("conv3x3x3.cu", "evonorm_s0.cu", "edt_envelope.cu", "glue3d.cu")
+SOURCES = ("conv3x3x3.cu", "evonorm_s0.cu", "edt_envelope.cu", "glue3d.cu", "window_attn.cu")
 
 
 def warm_up(device) -> None:
@@ -127,6 +127,7 @@ def warm_up(device) -> None:
     from .edt import envelope
     from .evonorm import evonorm_s0
     from .glue import se_gate_pool, upsample_cat
+    from .window_attn import window_attn
     builds = [start_build(src) for src in SOURCES]
     for build in builds:
         finish_build(build)
@@ -139,4 +140,6 @@ def warm_up(device) -> None:
     ones = functools.partial(torch.ones, device=device, dtype=torch.bfloat16)
     se_gate_pool(ones((1, 2, 2, 2, 8)), ones((1, 8)), pool=True)
     upsample_cat(ones((1, 2, 2, 2, 8)), ones((1, 1, 1, 1, 8)))
+    window_attn(ones((1, 7, 7, 7, 3, 1, 16)), torch.zeros((2197, 1), device=device),
+                (7, 7, 7), (3, 3, 3))
     torch.cuda.synchronize(device)

@@ -12,6 +12,11 @@ importance map with σ = 0.125·roi (:119-121), pad-to-roi then crop
 (:104-109, 156-162), deep-supervision head[0] selection (:135-138).
 Where the JAX version fills the last batch with copies of the last window
 at zero weight, this one sends a shorter last batch; the sums are the same.
+
+Spans (``utils/profiling.annotate``, recorded while a profiler runs):
+``sw.predict`` around each predictor call (its count ``windows``, the
+batch's windows), ``sw.stitch`` around each batch's weighted adds and
+around the final division.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import annotate
 from .tta import main_head
 
 
@@ -129,17 +135,20 @@ def stitch_windows(inputs: torch.Tensor, roi_size: Sequence[int],
     count = torch.zeros((1, *padded, 1), dtype=torch.float32, device=x.device)
     for i in range(0, len(starts), sw_batch_size):
         group = starts[i:i + sw_batch_size]
-        wins = torch.cat([x[:, s0:s0 + roi[0], s1:s1 + roi[1], s2:s2 + roi[2]]
-                          for s0, s1, s2 in group])
-        preds = main_head(predictor(wins)).float()
-        if out_sum is None:
-            out_sum = zeros(preds.shape[-1])
-        for j, (s0, s1, s2) in enumerate(group):
-            sl = (slice(None), slice(s0, s0 + roi[0]), slice(s1, s1 + roi[1]),
-                  slice(s2, s2 + roi[2]))
-            out_sum[sl] += imp * preds[j * b:(j + 1) * b]
-            count[sl] += imp
-    stitched = reduce(out_sum) / reduce(count)
+        with annotate("sw.predict", windows=len(group)):
+            wins = torch.cat([x[:, s0:s0 + roi[0], s1:s1 + roi[1], s2:s2 + roi[2]]
+                              for s0, s1, s2 in group])
+            preds = main_head(predictor(wins)).float()
+        with annotate("sw.stitch"):
+            if out_sum is None:
+                out_sum = zeros(preds.shape[-1])
+            for j, (s0, s1, s2) in enumerate(group):
+                sl = (slice(None), slice(s0, s0 + roi[0]), slice(s1, s1 + roi[1]),
+                      slice(s2, s2 + roi[2]))
+                out_sum[sl] += imp * preds[j * b:(j + 1) * b]
+                count[sl] += imp
+    with annotate("sw.stitch"):
+        stitched = reduce(out_sum) / reduce(count)
     # crop the pad-to-roi margins (inferers.py:156-162)
     return stitched[(slice(None),) + tuple(
         slice(before, before + s) for (before, _), s in zip(pads, spatial))]

@@ -6,8 +6,9 @@
 Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. build the hand-written kernels from the sources in this checkout (the
-   CUDA conv, EvoNorm, EDT envelope and the glue passes, one nvcc each,
-   all at once), and print each library's build time;
+   CUDA conv, EvoNorm, EDT envelope, the glue passes and the window
+   attention, one nvcc each, all at once), and print each library's build
+   time;
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the served case gives it, and time kernel, plain version and,
    where one exists, the one PyTorch call computing the same function,
@@ -195,11 +196,19 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     process's count, none of B2's one-call path; (d) each rank's peak
     memory and seconds a forward beside one process's, and the phase's
     wall; (e) the same forwards with every halo left zero
-    (:func:`halos_left_zero`), which must break the limits of (a) and (b).
+    (:func:`halos_left_zero`), which must break the limits of (a) and (b);
+27. Swin UNETR at its published sizes (feature size 48): B4, the window
+    attention, against its plain version at a 128³ window's four stage
+    grids, batch 2, both block kinds, bf16 within ``WINDOW_ATTN_REL_RMS``
+    and fp32 within ``WINDOW_ATTN_F32_REL_RMS`` of the fp32 composition,
+    each timed beside its bound and the plain composition; 2 train steps at
+    128³ (20 B1 launches a step, none of B4); the run directory served
+    through windows of 128³ with ``--tta`` (20 B1 and 8 B4 launches a
+    predictor call of two windows). Every other path above launches no B4.
 
 Phase 1 also builds the native case loader (``csrc/nifti_native.cc``, g++);
 phase 6 times decode + crop + normalise on its path and on the numpy path
-on the same case, and every case that phases 4-14, 16, 17, 19 and 20 load must go
+on the same case, and every case that phases 4-14, 16, 17, 19, 20 and 27 load must go
 through it,
 with no fallback to the numpy path; phase 15 counts its loads and the
 corrupt case's fallbacks exactly.
@@ -255,17 +264,21 @@ EDT_SCAN_OPS = 4
 # forward: training, slabs and the other models keep PyTorch's calls
 GLUE_FORWARD = dict(se_gate_pool=7, upsample_cat=3)
 NO_GLUE = dict(se_gate_pool=0, upsample_cat=0)
+# B4's launches (the window attention) in every forward but Swin UNETR's
+# with no autograd: training and the other models take none
+NO_B4 = dict(window_attn=0)
 # launches per train step: the EDT maps of the target and the three heads
 # are one edt_sq batch (the mask pass and two general passes)
-TRAIN_STEP_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=3, **NO_GLUE)
+TRAIN_STEP_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=3, **NO_GLUE, **NO_B4)
 # dice_boundary: no EDT in the step; the loader's one_hot2dist makes one
 # edt_sq batch (3 channels, negative and positive) a case
-BOUNDARY_STEP_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21, **NO_GLUE)
+BOUNDARY_STEP_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21, **NO_GLUE, **NO_B4)
 EDT_LAUNCHES_PER_LOADED_CASE = 3
 # a served forward (no loss), and a validation case with dice_hd: the
 # forward with its deep heads, and the loss's one EDT batch (the target and
 # three heads, 12 masks of the case)
-SERVED_FORWARD_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=0, **GLUE_FORWARD)
+SERVED_FORWARD_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=21, edt_envelope=0, **GLUE_FORWARD,
+                               **NO_B4)
 VAL_CASE_LAUNCHES = dict(SERVED_FORWARD_LAUNCHES, edt_envelope=3)
 SW_ROI = (128, 128, 128)        # --sliding_window_size's default
 SW_BATCH = 2                    # windows a forward (engine.py:459)
@@ -306,13 +319,15 @@ ZOO_CHECKS = [(name, "group", 48 if name == "equiunet" else 32) for name in ZOO_
 MODEL1_ARGS = ("--model", "equiunet", "--norm", "group", "--act", "relu", "--width", "48",
                "--criterion", "dice", "--optimizer", "ranger", "--decay_type", "cosine",
                "--learning_rate", "0.0003", "--remove_outliers")
-MODEL1_STEP_LAUNCHES = dict(conv3x3x3=15, evonorm_s0=0, edt_envelope=0, **NO_GLUE)
+MODEL1_STEP_LAUNCHES = dict(conv3x3x3=15, evonorm_s0=0, edt_envelope=0, **NO_GLUE,
+                            **NO_B4)
 # the --norm batch phase: the attention unet, whose gates' BatchNorms the
 # JAX package never trains
 BATCHNORM_ARGS = ("--model", "att_unet", "--norm", "batch", "--width", "48", "--criterion",
                   "dice", "--optimizer", "ranger", "--decay_type", "cosine",
                   "--learning_rate", "0.0003")
-BATCHNORM_STEP_LAUNCHES = dict(conv3x3x3=17, evonorm_s0=0, edt_envelope=0, **NO_GLUE)
+BATCHNORM_STEP_LAUNCHES = dict(conv3x3x3=17, evonorm_s0=0, edt_envelope=0, **NO_GLUE,
+                               **NO_B4)
 # the MONAI-backed names: the conv kernel runs every stride-1 dilation-1 3³
 # conv, narrow ones included (SegResNet's 8 channels, UNETR's 16); VNet's
 # convs are 5³ and 2³, HighResNet's dilated ones and every strided conv
@@ -338,7 +353,8 @@ UNETR_CONV_CALLS = [(1, 4, 16, 1), (1, 16, 16, 2), (1, 32, 16, 1)]
 # phase 19: nnunet as the nnU-Net layout trains it, with novograd
 NNUNET_ARGS = ("--model", "nnunet", "--norm", "instance", "--criterion", "dice",
                "--optimizer", "novograd", "--decay_type", "cosine", "--learning_rate", "1e-3")
-NNUNET_STEP_LAUNCHES = dict(conv3x3x3=17, evonorm_s0=0, edt_envelope=0, **NO_GLUE)
+NNUNET_STEP_LAUNCHES = dict(conv3x3x3=17, evonorm_s0=0, edt_envelope=0, **NO_GLUE,
+                            **NO_B4)
 # the resumed run against the uninterrupted one (stated before the first
 # chip run): the last step's loss within 1e-3 relative, and every tensor
 # within 5 % of how far the uninterrupted run moved it (cuDNN's backward may
@@ -380,7 +396,7 @@ DDP_PARAM_SHARE = dict(fp32=1e-3, bf16=1e-2)
 # none of B2's one-call path
 SPATIAL_SPACE = 2
 SPATIAL_FORWARD_LAUNCHES = dict(conv3x3x3=14, evonorm_s0=0, evonorm_s0_stats=21,
-                                evonorm_s0_apply=21, **NO_GLUE)
+                                evonorm_s0_apply=21, **NO_GLUE, **NO_B4)
 SPATIAL_LABEL_TARGET = 0.999
 SPATIAL_LABEL_MARGIN = 5e-4
 SPATIAL_FP32_LABEL_MARGIN = 1e-4
@@ -455,10 +471,29 @@ EVONORM_APPLY_OPS = 7
 # SegResNetVAE with its VAE term
 UNETR_ARGS = ("--model", "unet_tr", "--norm", "instance", "--criterion", "dice",
               "--optimizer", "adamw", "--decay_type", "cosine", "--learning_rate", "1e-4")
-UNETR_STEP_LAUNCHES = dict(conv3x3x3=10, evonorm_s0=0, edt_envelope=0, **NO_GLUE)
+UNETR_STEP_LAUNCHES = dict(conv3x3x3=10, evonorm_s0=0, edt_envelope=0, **NO_GLUE,
+                           **NO_B4)
 SEGRESNETVAE_ARGS = ("--model", "segresnetvae", "--criterion", "dice", "--optimizer",
                      "adamw", "--decay_type", "cosine", "--learning_rate", "1e-4")
-SEGRESNETVAE_STEP_LAUNCHES = dict(conv3x3x3=31, evonorm_s0=0, edt_envelope=0, **NO_GLUE)
+SEGRESNETVAE_STEP_LAUNCHES = dict(conv3x3x3=31, evonorm_s0=0, edt_envelope=0, **NO_GLUE,
+                                  **NO_B4)
+# phase 27: Swin UNETR (feature size 48) trained at 128³ and served through
+# windows of 128³: B1 runs its 20 3³ convs a forward, B4 8 (4 stages × 2
+# blocks) a forward with no autograd and none in a train step
+SWIN_ARGS = ("--model", "swin_unetr", "--criterion", "dice", "--optimizer", "adamw",
+             "--decay_type", "cosine", "--learning_rate", "1e-4")
+SWIN_STEP_LAUNCHES = dict(conv3x3x3=20, evonorm_s0=0, edt_envelope=0, **NO_GLUE, **NO_B4)
+SWIN_FORWARD_LAUNCHES = dict(SWIN_STEP_LAUNCHES, window_attn=8)
+# B4 at a 128³ window's four stage grids (padded to multiples of the window
+# of 7) with their heads; its error against the fp32 composition, relative
+# RMS: bf16 as tests/test_torch_port_swin.py's B4_REL_RMS, fp32 as its
+# B4_F32_REL_RMS; the softmax's exponentials a second of one H100 SXM (16 an
+# SM a clock, as FlashAttention-3, Shah et al. 2024, gives the rate)
+SWIN_STAGE_GRIDS = [((70, 70, 70), 3), ((35, 35, 35), 6), ((21, 21, 21), 12),
+                    ((14, 14, 14), 24)]
+WINDOW_ATTN_REL_RMS = 2.5e-3
+WINDOW_ATTN_F32_REL_RMS = 1e-5
+PEAK_EXP = 3.9e12
 
 
 def log(msg: str) -> None:
@@ -907,9 +942,10 @@ class Tally:
 
     def __init__(self):
         from brats21_tpu_torch.ops.kernels import conv3d, edt, evonorm, glue
+        from brats21_tpu_torch.ops.kernels import window_attn as wa
         self.mods = dict(conv3x3x3=conv3d, evonorm_s0=evonorm, edt_envelope=edt,
                          se_gate_pool=(glue, "se_gate_pool_launches"),
-                         upsample_cat=(glue, "upsample_cat_launches"))
+                         upsample_cat=(glue, "upsample_cat_launches"), window_attn=wa)
         self.total = dict.fromkeys(self.mods, 0)
         self.take()
         self.total = dict.fromkeys(self.mods, 0)
@@ -2277,6 +2313,127 @@ def unetr_phase(work: Path, train_data: Path, data: Path, dev) -> dict:
     return res
 
 
+def check_window_attn(dev) -> dict:
+    """B4 against its plain version at a 128³ window's four stage grids
+    with their heads, batch 2 (a predictor call), both block kinds: in bf16
+    within :data:`WINDOW_ATTN_REL_RMS` of the fp32 composition on the same
+    bf16 inputs (the plain bf16 composition's error beside it), in fp32
+    within :data:`WINDOW_ATTN_F32_REL_RMS` of the fp32 composition. Each
+    launch is timed (bf16 and fp32) beside the plain bf16 composition and
+    its bound: the largest of the products at the bf16 peak, the softmax's
+    exponentials at :data:`PEAK_EXP`, and q, k, v and the output moved once."""
+    import torch
+    from brats21_tpu_torch.ops.kernels import window_attn as wa
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    rows, terms = [], dict(exponentials=0.0, operations=0.0, bytes=0.0)
+
+    def rel_rms(got, want):
+        return float((got.float() - want).square().mean().sqrt() / want.square().mean().sqrt())
+
+    for grid, heads in SWIN_STAGE_GRIDS:
+        qkv = torch.randn((SW_BATCH, *grid, 3, heads, wa.HEAD_DIM), generator=gen, device=dev)
+        qkv[..., :2, :, :] *= 2.0          # scores of a few units, as trained attention has
+        table = torch.randn(((2 * wa.WINDOW - 1) ** 3, heads), generator=gen, device=dev)
+        bf = qkv.to(torch.bfloat16)
+        ws, shifted = wa.window_geometry(grid)
+        for shift in ((0, 0, 0), shifted):
+            exact = wa.window_attn_plain(bf.float(), table, ws, shift)
+            got = wa.window_attn(bf, table, ws, shift)
+            err = rel_rms(got, exact)
+            err_plain = rel_rms(wa.window_attn_plain(bf, table, ws, shift), exact)
+            err32 = rel_rms(wa.window_attn(qkv, table, ws, shift),
+                            wa.window_attn_plain(qkv, table, ws, shift))
+            if not (err <= WINDOW_ATTN_REL_RMS and err32 <= WINDOW_ATTN_F32_REL_RMS):
+                raise AssertionError(
+                    f"B4 at {grid} x {heads} heads, shift {shift}: relative RMS bf16 {err:.3g} "
+                    f"(limit {WINDOW_ATTN_REL_RMS}; the plain bf16 composition {err_plain:.3g}), "
+                    f"fp32 {err32:.3g} (limit {WINDOW_ATTN_F32_REL_RMS})")
+            n = math.prod(ws)
+            pairs = SW_BATCH * heads * math.prod(grid) * n
+            secs = dict(exponentials=pairs / PEAK_EXP,
+                        operations=4.0 * pairs * wa.HEAD_DIM / PEAK_BF16,
+                        bytes=4 * 2.0 * SW_BATCH * math.prod(grid) * heads * wa.HEAD_DIM
+                        / PEAK_BYTES)
+            for k, v in secs.items():
+                terms[k] += v
+            row = dict(grid=list(grid), heads=heads, shift=list(shift), rel_rms=err,
+                       plain_rel_rms=err_plain, fp32_rel_rms=err32,
+                       ms=time_ms(lambda: wa.window_attn(bf, table, ws, shift)),
+                       fp32_ms=time_ms(lambda: wa.window_attn(qkv, table, ws, shift)),
+                       plain_ms=time_ms(lambda: wa.window_attn_plain(bf, table, ws, shift), 2),
+                       bound_ms=1e3 * max(secs.values()),
+                       bound_by=max(secs, key=secs.get))
+            rows.append(row)
+            log(f"window_attn {grid} x {heads} heads, shift {shift}: relative RMS {err:.3g} "
+                f"(plain bf16 {err_plain:.3g}, fp32 path {err32:.3g}); kernel {row['ms']:.4f} "
+                f"ms, fp32 {row['fp32_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}), plain {row['plain_ms']:.3f} ms")
+        del qkv, bf, table, exact, got
+        torch.cuda.empty_cache()
+    return dict(rows=rows, **{k: sum(r[k] for r in rows)
+                              for k in ("ms", "fp32_ms", "plain_ms", "bound_ms")},
+                bound_by=max(terms, key=terms.get),
+                max_rel_rms=max(r["rel_rms"] for r in rows),
+                max_fp32_rel_rms=max(r["fp32_rel_rms"] for r in rows))
+
+
+def swin_phase(work: Path, train_data: Path, data: Path, dev) -> dict:
+    """Phase 27: Swin UNETR (feature size 48, its published sizes) — B4
+    against its plain version (:func:`check_window_attn`); 2 train steps at
+    128³ through the train CLI (20 B1 launches a step forward, none of B4,
+    none backward); the run directory served by the inference CLI through
+    windows of 128³ with ``--tta`` and both post-processing flags, its
+    launches a case counted from each TTA combo's window plan (20 B1 and 8
+    B4 a predictor call of two windows)."""
+    import torch
+    from brats21_tpu_torch.ops import tta
+    from brats21_tpu_torch.ops.sliding_window import window_plan
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    attn = check_window_attn(dev)
+    two = cases_dir(work, train_data, "swin_cases", 2)
+    train = run_training(two, work / "runs_swin", dev, model_args=SWIN_ARGS)
+    if train["steps"] != 2:
+        raise AssertionError(f"swin_unetr ran {train['steps']} steps, not 2")
+    check_step_launches(train, SWIN_STEP_LAUNCHES, "swin_unetr")
+    train["step_launches"] = train["forward_launches"][0]
+    run_dir = Path(train["run_dir"])
+    out = work / "out_swin"
+    served = run_cli(["--config", str(run_dir / "config.yaml"), "--on", "test", "--input",
+                      str(data), "--device", "0", "--sliding_window_inference",
+                      "--sliding_window_size", *map(str, SW_ROI), "--tta", "--cleaning_areas",
+                      "--replace_value", "--output", str(out)], dev)
+    case, = served["cases"]
+    calls = 0
+    for axe, flip, angle in tta.COMBOS:
+        shape = tta.aug_flip_rot(tta.aug_axes(torch.empty((1, *case["padded"], 0)), axe),
+                                 flip, angle).shape[1:4]
+        calls += -(-len(window_plan(shape, SW_ROI)[2]) // SW_BATCH)
+    want = {k: calls * v for k, v in SWIN_FORWARD_LAUNCHES.items()}
+    if case["launches"] != want or not case["tta"]:
+        raise AssertionError(f"swin_unetr served case: launches {case['launches']} != {want} "
+                             f"({calls} predictor calls over the 16 combos)")
+    check_segmentation(out / "Inference_segmentations_test" / "BraTS2021_00000.nii.gz")
+    torch.cuda.empty_cache()
+    for key in ("forward_launches", "backward_launches"):
+        train.pop(key)
+    res = dict(window_attn=attn, train=train, served=dict(
+                   case_s=served["case_s"], wall_s=served["wall_s"], padded=case["padded"],
+                   predictor_calls=calls, launches=case["launches"],
+                   peak_bytes=served["peak_bytes"]),
+               phase_s=time.time() - t0)
+    log(f"phase 27 swin_unetr: B4 a predictor call {attn['ms']:.3f} ms (fp32 "
+        f"{attn['fp32_ms']:.3f}, bound {attn['bound_ms']:.3f}, plain {attn['plain_ms']:.3f}), "
+        f"relative RMS at most {attn['max_rel_rms']:.3g} (fp32 {attn['max_fp32_rel_rms']:.3g}); "
+        f"train steps {[round(t, 1) for t in train['step_ms']]} ms, losses "
+        f"{[round(v, 4) for v in train['step_losses']]}, peak "
+        f"{train['peak_bytes'] / 2**30:.2f} GiB, launches a step {train['step_launches']}; "
+        f"served case with --tta {served['case_s'][0]:.3f}s, {calls} predictor calls, launches "
+        f"{case['launches']}, peak {served['peak_bytes'] / 2**30:.2f} GiB; in "
+        f"{res['phase_s']:.1f}s")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phases 21-24: ranks under torch.distributed.run
 # ---------------------------------------------------------------------------
@@ -2474,17 +2631,18 @@ def served_labels(logits, img):
 
 def spatial_counts(conv3d, evonorm, reset: bool = False) -> dict:
     """The spatial path's launch counters (B1, B2's one call, its split
-    statistics and apply, the glue's two entry points), zeroed after the
-    read with ``reset``."""
+    statistics and apply, the glue's two entry points, B4), zeroed after
+    the read with ``reset``."""
     from brats21_tpu_torch.ops.kernels import glue
+    from brats21_tpu_torch.ops.kernels import window_attn as wa
     counts = dict(conv3x3x3=conv3d.launches, evonorm_s0=evonorm.launches,
                   evonorm_s0_stats=evonorm.stats_launches,
                   evonorm_s0_apply=evonorm.apply_launches,
                   se_gate_pool=glue.se_gate_pool_launches,
-                  upsample_cat=glue.upsample_cat_launches)
+                  upsample_cat=glue.upsample_cat_launches, window_attn=wa.launches)
     if reset:
         conv3d.launches = evonorm.launches = evonorm.stats_launches = 0
-        evonorm.apply_launches = 0
+        evonorm.apply_launches = wa.launches = 0
         glue.se_gate_pool_launches = glue.upsample_cat_launches = 0
     return counts
 
@@ -3846,6 +4004,11 @@ def main() -> int:
     zoo_spatial = zoo_spatial_phase(work, shape_to_divisible(sample["img"])[0],
                                     spatial_res["label_share_floor_batch_of_two"], dev)
 
+    # 27. Swin UNETR: B4 against its plain version, trained, served through
+    # windows with --tta
+    swin = swin_phase(work, train_data, data, dev)
+    take_native(27, cli=True)
+
     sliding_case, = ensemble["sliding"]["cases"]
 
     def launches_by_path(name: str) -> dict:
@@ -3882,7 +4045,9 @@ def main() -> int:
             pipeline_case_tta=pipeline["launches"]["d_b"][name]
             // PIPELINE_TTA_CASES,
             pipeline_val_case=pipeline["val"]["launches"][name]
-            // len(pipeline["val"]["batch_time_s"]["a"]))
+            // len(pipeline["val"]["batch_time_s"]["a"]),
+            swin_unetr_train_step=swin["train"]["step_launches"][name],
+            swin_unetr_case_tta=swin["served"]["launches"][name])
 
     kernel_rows = []
     for name, route, source, replaces, tolerance, res, res_train, ms_per in (
@@ -3971,6 +4136,19 @@ def main() -> int:
             bound_ms=sum(r["bound_ms"] for r in res), bound_by="bytes",
             composition_ms=sum(r["composition_ms"] for r in res), ms_per="served forward",
             shapes=res))
+    attn = swin["window_attn"]
+    kernel_rows.append(dict(
+        name="window_attn", route="cuda", source="brats21_tpu_torch/csrc/window_attn.cu",
+        replaces="none (the JAX package has no Swin UNETR)",
+        launches_per="served swin_unetr case (128³ windows in pairs, 16-combo TTA)",
+        launches=swin["served"]["launches"]["window_attn"],
+        launches_by_path=launches_by_path("window_attn"),
+        tolerance=f"relative RMS of the fp32 composition: bf16 {WINDOW_ATTN_REL_RMS}, fp32 "
+                  f"{WINDOW_ATTN_F32_REL_RMS}",
+        max_rel_rms=attn["max_rel_rms"], max_fp32_rel_rms=attn["max_fp32_rel_rms"],
+        ms=attn["ms"], fp32_ms=attn["fp32_ms"], plain_ms=attn["plain_ms"],
+        bound_ms=attn["bound_ms"], bound_by=attn["bound_by"],
+        ms_per="predictor call (2 windows of 128³: 8 launches)", shapes=attn["rows"]))
     for run in (train, boundary, val):
         run.pop("forward_launches")
         run.pop("backward_launches")
@@ -3982,7 +4160,7 @@ def main() -> int:
                    zoo_models=zoo, model1=model1, batchnorm=batchnorm, monai_zoo=monai,
                    nnunet=nnunet, unetr=unetr, ddp=ddp, serve_two_ranks=serve2,
                    two_nodes=nodes, spatial=spatial_res, pipeline=pipeline,
-                   zoo_spatial=zoo_spatial, glue_forward=glue_res["forward"],
+                   zoo_spatial=zoo_spatial, glue_forward=glue_res["forward"], swin=swin,
                    total_s=time.time() - t_start)
     log("summary: " + json.dumps(summary))
     shutil.rmtree(work, ignore_errors=True)

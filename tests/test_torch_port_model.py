@@ -159,7 +159,7 @@ def test_get_model_names_later_slices():
     names since the model zoo's second part); an unknown name is the
     reference's error."""
     from brats21_tpu_torch.config import MODEL_CHOICES
-    assert len(MODEL_CHOICES) == 17
+    assert len(MODEL_CHOICES) == 18
     for name in MODEL_CHOICES:
         model = get_model({"model": name, "width": 4, "norm": "instance",
                            "patch_size": [32, 32, 32]})
